@@ -1,0 +1,30 @@
+"""pyhgt_tpu_torch — the PyTorch + CUDA port of :mod:`pyhgt_tpu`.
+
+The JAX package stays the reference; this package mirrors its module paths
+(``pyhgt_tpu_torch/ops/sorted_hgt.py`` <-> ``pyhgt_tpu/ops/sorted_hgt.py``)
+and imports nothing of it, nor of JAX. What is ported so far is the
+inference forward of the flagship HGT model on the scatter-free sorted-edge
+path, with the target aggregation's segment sum as a hand-written Hopper
+kernel (:mod:`pyhgt_tpu_torch.ops.pallas_seg`).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU and no explicit CPU request they raise (:func:`resolve_device`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, the CPU only
+    when asked for. Never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pyhgt_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain CPU path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

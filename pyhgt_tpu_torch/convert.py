@@ -1,0 +1,53 @@
+"""Carry weights across from the JAX package.
+
+The JAX package's ``Flagship.init_params`` (or a trained checkpoint's
+params) is a nested dict; as numpy arrays it reads::
+
+    {"params": {
+        "gnn": {"adapt_w": [T, Din, n_hid], "adapt_b": [T, n_hid],
+                "convs_<i>": {"base_conv": {wq, bq, wk, bk, wv, bv, wa, ba,
+                                            rel_pri, rel_att, rel_msg, skip,
+                                            ln_scale, ln_bias, rte_w, rte_b}}},
+        "clf": {"Dense_0": {"kernel": [n_hid, n_out], "bias": [n_out]}}}}
+
+The port keeps every HGT leaf under the same name and shape; only the flax
+``Dense`` kernel ``[in, out]`` becomes the torch ``Linear`` weight
+``[out, in]``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``FlagshipModel`` state dict from a flax param tree."""
+    p = tree["params"] if "params" in tree else tree
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+
+    gnn = p["gnn"]
+    for name, leaf in gnn.items():
+        if name.startswith("convs_"):
+            i = int(name[len("convs_"):])
+            for k, v in leaf["base_conv"].items():
+                put(f"gnn.convs.{i}.{k}", v)
+        else:
+            put(f"gnn.{name}", leaf)
+    dense = p["clf"]["Dense_0"]
+    put("clf.linear.weight", np.asarray(dense["kernel"]).T)
+    put("clf.linear.bias", dense["bias"])
+    return out
+
+
+def load_flax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a flax ``FlagshipModel`` param tree into the port's
+    ``FlagshipModel`` (strict: every leaf must map to a parameter and every
+    parameter must be covered)."""
+    model.load_state_dict(flax_to_state_dict(tree), strict=True)
+    return model

@@ -1,0 +1,64 @@
+"""GNN stack and the classifier head.
+
+Counterpart of :mod:`pyhgt_tpu.models.model` (``GNN`` and ``Classifier``;
+reference ``pyHGT/model.py:3-14,54-80``), on the HGT conv only.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pyhgt_tpu_torch.models.conv import HGTConv, lecun_normal_
+from pyhgt_tpu_torch.ops.hgt import typed_linear
+
+
+class GNN(nn.Module):
+    """Per-type input adaptation + a stack of HGT layers
+    (``model.py:54-80``). The reference's per-type ``adapt_ws`` Linear loop
+    is one batched ``[T,C,Din]×[T,Din,n_hid]`` matmul here."""
+
+    def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
+                 n_layers, *, generator: torch.Generator, dropout=0.2,
+                 prev_norm=False, last_norm=False, use_rte=True,
+                 edge_bf16=False, seg_pallas=False, softmax_tilemax=""):
+        super().__init__()
+        self.adapt_w = nn.Parameter(
+            lecun_normal_(torch.empty(num_types, in_dim, n_hid), generator))
+        self.adapt_b = nn.Parameter(torch.zeros(num_types, n_hid))
+        self.drop = nn.Dropout(dropout)
+        self.convs = nn.ModuleList(
+            HGTConv(
+                n_hid, n_hid, num_types, num_relations, n_heads,
+                generator=generator, dropout=dropout,
+                use_norm=last_norm if li == n_layers - 1 else prev_norm,
+                use_rte=use_rte, edge_bf16=edge_bf16, seg_pallas=seg_pallas,
+                softmax_tilemax=softmax_tilemax,
+            )
+            for li in range(n_layers)
+        )
+
+    def forward(self, node_feat, node_mask, se, em):
+        h = torch.tanh(typed_linear(node_feat, self.adapt_w, self.adapt_b))
+        h = self.drop(h)
+        h = h * node_mask[..., None]
+        for conv in self.convs:
+            h = conv(h, node_mask, se, em)
+        return h
+
+
+class Classifier(nn.Module):
+    """Linear + log_softmax head (``model.py:3-14``); the linear is
+    initialized as flax's ``Dense`` (lecun_normal kernel, zero bias)."""
+
+    def __init__(self, n_hid, n_out, *, generator: torch.Generator):
+        super().__init__()
+        self.linear = nn.Linear(n_hid, n_out)
+        with torch.no_grad():
+            # flax kernel [in, out] = torch weight [out, in] transposed
+            kernel = lecun_normal_(torch.empty(n_hid, n_out), generator)
+            self.linear.weight.copy_(kernel.T)
+            self.linear.bias.zero_()
+
+    def forward(self, x):
+        return torch.log_softmax(self.linear(x), dim=-1)

@@ -1,0 +1,336 @@
+"""Scatter-free HGT edge stage over target-sorted edges — the forward.
+
+Counterpart of :mod:`pyhgt_tpu.ops.sorted_hgt`, as far as the inference
+forward reads it. The edge stage is: gather the K/V rows of each edge
+(relation-transformed node banks + RTE tables), score against the target's
+query, softmax per target segment, and sum the weighted messages per
+target. Per-segment reductions follow the JAX package's hierarchical
+scheme over the host aux of :mod:`pyhgt_tpu_torch.sampling.sorted_batch`:
+
+- level 1 sums rows per (tile, local segment rank): the wide ``[E, D]``
+  aggregation through the ``live_partials`` kernel
+  (:mod:`pyhgt_tpu_torch.ops.pallas_seg`) when ``seg_pallas`` is on, the
+  narrow ``[E, H]`` softmax sums by an ``index_add_`` into tile-local rows
+  (the TPU package's per-tile one-hot matmul computes the same sums);
+- level 2 adds the few live rows of each segment together.
+
+The JAX package wraps the edge stage in a ``jax.custom_vjp``; here it is a
+plain forward function. Its ``torch.autograd.Function`` comes with the
+training slice. The algebra matches the reference
+(``pyHGT/conv.py:60-111``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pyhgt_tpu_torch.ops.hgt import (
+    _block_relation_transform,
+    _rte_block_tables,
+    typed_linear,
+)
+from pyhgt_tpu_torch.ops.pallas_seg import live_partials
+
+NEG = -1e30
+_TILE = 128  # narrow-reduction tile (the host aux's REDUCE_TILE)
+
+
+# ---------------------------------------------------------------- primitives
+def _row_segments(seg_ptr, n_rows):
+    """Segment id of each of ``n_rows`` sorted rows under the CSR pointer
+    ``seg_ptr [S+1]``; rows outside ``[seg_ptr[0], seg_ptr[S])`` get S."""
+    S = seg_ptr.shape[0] - 1
+    rows = torch.arange(n_rows, dtype=seg_ptr.dtype, device=seg_ptr.device)
+    seg = torch.searchsorted(seg_ptr, rows, right=True).long() - 1
+    return torch.where(seg < 0, S, seg)
+
+
+def seg_sum_csr(data, seg_ptr):
+    """Per-segment sums [S, ...] f32 of sorted ``data [E, ...]``; ``seg_ptr
+    [S+1]`` delimits the segments (CSR).
+
+    The JAX package takes a cumsum difference, a cheap matmul scan on the
+    TPU; here each row is added straight into its segment (``index_add_``),
+    since a dim-0 cumsum of a [14016, 512] f32 tensor measured ~3 ms on the
+    H100 (chip_smoke.py --profile). The sum of a segment's few rows is also
+    free of the cumsum difference's cancellation error.
+    """
+    S = seg_ptr.shape[0] - 1
+    seg = _row_segments(seg_ptr, data.shape[0])
+    out = torch.zeros((S + 1,) + tuple(data.shape[1:]), dtype=torch.float32,
+                      device=data.device)
+    return out.index_add_(0, seg, data.float())[:S]
+
+
+def seg_max_csr(data, seg_ptr):
+    """Per-segment max [S, ...] f32 of sorted ``data`` (empty segments:
+    NEG)."""
+    S = seg_ptr.shape[0] - 1
+    seg = _row_segments(seg_ptr, data.shape[0])
+    idx = seg.reshape((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
+    out = torch.full((S + 1,) + tuple(data.shape[1:]), NEG,
+                     dtype=torch.float32, device=data.device)
+    return out.scatter_reduce_(0, idx, data.float(), "amax")[:S]
+
+
+def _shift_max(x, ids, width):
+    """Segmented running max along axis 1 of ``x [tiles, width, ...]`` by
+    Hillis–Steele shifts: ``ids [tiles, width]`` sorted within each row."""
+    tail = (1,) * (x.dim() - 2)
+    s = 1
+    while s < width:
+        sx = torch.cat(
+            [torch.full_like(x[:, :s], NEG), x[:, :-s]], dim=1)
+        sid = torch.cat(
+            [torch.full_like(ids[:, :s], -1), ids[:, :-s]], dim=1)
+        same = (sid == ids).reshape(ids.shape + tail)
+        x = torch.where(same, torch.maximum(x, sx), x)
+        s *= 2
+    return x
+
+
+def _tile_partials(data, tile_local, K=_TILE):
+    """Level 1 of the tiled segment sum: f32 ``[tiles*K + 1, ...]`` whose
+    row ``t*K + r`` sums tile t's rows of local rank r; the extra last row
+    is the zero row padded live rows point at."""
+    E = data.shape[0]
+    tiles = E // K
+    tile_of = torch.arange(E, device=data.device) // K
+    rows = tile_of * K + tile_local
+    out = torch.zeros((tiles * K + 1,) + tuple(data.shape[1:]),
+                      dtype=torch.float32, device=data.device)
+    return out.index_add_(0, rows, data.float())
+
+
+def seg_sum_tiled(data, tile_local, live_idx, seg_ptr2, K=_TILE):
+    """Hierarchical tiled segment sum: per-(tile, local rank) partials, then
+    the ≤ S+E/K live rows — already in segment order — added per segment."""
+    live = _tile_partials(data, tile_local, K)[live_idx]
+    return seg_sum_csr(live, seg_ptr2)
+
+
+def seg_max_tiled(data, seg_ids, live_last, seg_ptr2, K=_TILE):
+    """Hierarchical tiled segment max: in-tile shift steps, then a small
+    second-level segmented max over the live rows."""
+    E = data.shape[0]
+    tiles = E // K
+    x = data.float().reshape((tiles, K) + tuple(data.shape[1:]))
+    run = _shift_max(x, seg_ids.reshape(tiles, K), K)
+    run = run.reshape((E,) + tuple(data.shape[1:]))
+    run = torch.cat([run, torch.full_like(run[:1], NEG)], dim=0)
+    live = run[live_last]                     # [M, ...] per-live-row max
+    return seg_max_csr(live, seg_ptr2)
+
+
+def _pallas_ok(data, paux, use_pallas: bool) -> bool:
+    # narrow ([E, H]) and n-D data stay on the plain tiled path, as in the
+    # JAX package
+    return (
+        use_pallas
+        and paux is not None
+        and data.dim() == 2
+        and data.shape[1] >= 128
+    )
+
+
+def _seg_sum_grouped(data, se, use_pallas: bool):
+    """Per-target-segment sum of tgt-ordered ``data``: wide 2-D tensors
+    through the ``live_partials`` kernel when the batch carries its aux."""
+    paux = se.pseg_tgt
+    if _pallas_ok(data, paux, use_pallas):
+        live = live_partials(data, paux)
+        return seg_sum_csr(live, paux.ptr2)
+    return seg_sum_tiled(data, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+
+
+def _seg_sum_weighted(wgt, val, H, dk, se, use_pallas: bool, out_dtype):
+    """Segment sum of ``head_expand(wgt) ⊙ val`` over the target grouping
+    (the JAX package's ``WEIGHTED_KERNEL = False`` branch: the product is
+    formed in ``out_dtype``, the sum accumulates in f32)."""
+    if out_dtype == torch.bfloat16:
+        msg = _head_expand_like(wgt, H, dk, out_dtype) * val.to(out_dtype)
+    else:
+        msg = (_head_expand(wgt, H, dk) * val.float()).to(out_dtype)
+    return _seg_sum_grouped(msg, se, use_pallas)
+
+
+def _head_sum(x, H, dk):
+    """Per-head lane sums: [E, D] -> [E, H] f32."""
+    return x.float().reshape(x.shape[0], H, dk).sum(-1)
+
+
+def _head_sum_prod(a, b, H, dk):
+    """``_head_sum(a ⊙ b)`` with the product in f32 (``b`` is cast inside
+    the multiply, not materialized as an f32 copy)."""
+    return _head_sum(a.float() * b, H, dk)
+
+
+def _head_expand(w, H, dk):
+    """Per-head scalars to lanes: [E, H] -> [E, D] f32."""
+    return w.float().repeat_interleave(dk, dim=1)
+
+
+def _head_expand_like(w, H, dk, dt):
+    """:func:`_head_expand` emitted in the edge dtype (``w`` rounds to
+    ``dt`` once, as the JAX package's bf16-output 0/1 matmul does; rounding
+    before the repeat writes no f32 [E, D] intermediate)."""
+    return w.to(dt).repeat_interleave(dk, dim=1)
+
+
+# --------------------------------------------------------------- edge stage
+def _gather_kv(k_rel, v_rel, k_tab, v_tab, gidx, tabidx, use_rte):
+    k_e = k_rel[gidx]
+    v_e = v_rel[gidx]
+    if use_rte:
+        k_e = k_e + k_tab[tabidx]
+        v_e = v_e + v_tab[tabidx]
+    return k_e, v_e
+
+
+def _attention(q_e, k_e, pri_e, mask, H, dk):
+    att = _head_sum_prod(q_e, k_e, H, dk) / math.sqrt(dk) * pri_e.float()
+    return torch.where(mask[:, None], att, torch.full_like(att, NEG))
+
+
+def _softmax_tiled(att, se):
+    m_n = seg_max_tiled(att, se.edge_tgt, se.live_last_tgt, se.seg_ptr2_tgt)
+    ex = torch.exp(att - m_n[se.edge_tgt]) * se.edge_mask[:, None]
+    den_n = seg_sum_tiled(ex, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+    den_e = torch.clamp(den_n[se.edge_tgt], min=1e-30)
+    return ex / den_e
+
+
+def _softmax_tilemax(att, se, K=_TILE):
+    """Segment softmax stabilized by the per-128-tile max instead of the
+    per-segment running max (exact online-softmax algebra).
+
+    With ``m_t`` the max of tile t, ``den_seg = Σ_t exp(m_t - m_seg) ·
+    Σ_{e ∈ t ∩ seg} exp(att_e - m_t)``: the inner sums are the level-1 tile
+    partials, the combine runs on the small live-row space in log space
+    (``lse = m_tile + log(partial)``). A row can underflow only if another
+    segment in its tile carries a logit >~87 above its own; a segment
+    whose every slice underflowed gets zeros, as in the JAX package."""
+    E, H = att.shape
+    tiles = E // K
+    a3 = att.reshape(tiles, K, H)
+    m_tile = a3.amax(dim=1)                                 # [tiles, H]
+    ex_t = torch.exp(a3 - m_tile[:, None, :]).reshape(E, H) \
+        * se.edge_mask[:, None]
+    live = _tile_partials(ex_t, se.tl_tgt, K)[se.live_idx_tgt]   # [M, H]
+    tile_of = torch.clamp(se.live_idx_tgt // K, max=tiles - 1)
+    m_live = torch.where(
+        (se.live_idx_tgt < tiles * K)[:, None], m_tile[tile_of],
+        torch.full_like(m_tile[tile_of], NEG),
+    )
+    lse_live = torch.where(
+        live > 0,
+        m_live + torch.log(torch.clamp(live, min=1e-38)),
+        torch.full_like(live, NEG),
+    )
+    m_n = seg_max_csr(lse_live, se.seg_ptr2_tgt)              # [S, H]
+    S = m_n.shape[0]
+    key_safe = torch.clamp(se.live_key_tgt, max=S - 1)
+    scale = torch.exp(torch.clamp(lse_live - m_n[key_safe], max=0.0))
+    den_n = seg_sum_csr(scale, se.seg_ptr2_tgt)
+    m_e = m_n[se.edge_tgt]
+    ex = torch.where(
+        m_e > -5e29,
+        torch.exp(torch.clamp(att - m_e, max=0.0)),
+        torch.zeros_like(att),
+    ) * se.edge_mask[:, None]
+    den_e = torch.clamp(den_n[se.edge_tgt], min=1e-30)
+    return ex / den_e
+
+
+def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
+                   use_rte, seg_pallas=False, softmax_tilemax=False):
+    """The edge stage: returns ``aggr [N, D]`` (f32). Inputs as in the JAX
+    package's ``hgt_edge_stage``: ``q_n [N, D]`` target queries,
+    ``k_rel/v_rel [B*C, D]`` relation-transformed banks, ``k_tab/v_tab``
+    RTE tables, ``pri_e [E, H]``."""
+    dt = k_rel.dtype
+    k_e, v_e = _gather_kv(k_rel, v_rel, k_tab, v_tab, se.gidx, se.tabidx,
+                          use_rte)
+    q_e = q_n[se.edge_tgt]
+    att = _attention(q_e, k_e, pri_e, se.edge_mask, H, dk)
+    if softmax_tilemax:
+        w = _softmax_tilemax(att, se)
+    else:
+        w = _softmax_tiled(att, se)
+    return _seg_sum_weighted(w, v_e, H, dk, se, seg_pallas, dt)
+
+
+def _tab_select(k_tab, v_tab, tab_sel):
+    """Compact-table rows: a row gather. The JAX package selects with a
+    one-hot matmul because the gather's autodiff transpose compiled badly on
+    XLA:TPU; the forward values are the same."""
+    return k_tab[tab_sel], v_tab[tab_sel]
+
+
+# ------------------------------------------------------------- full conv core
+def hgt_conv_core_sorted(
+    x,                 # [T, C, Din]
+    se,                # SortedEdges on x's device
+    em,                # EdgeStaticMeta on x's device
+    *,
+    wq, bq, wk, bk, wv, bv,
+    rel_pri, rel_att, rel_msg,
+    n_heads: int,
+    rte_vec=None,      # [L, Din] or None
+    edge_dtype=None,   # e.g. torch.bfloat16: run the per-edge stage in bf16
+    seg_pallas: bool = False,
+    softmax_tilemax=False,
+):
+    """Attention + message aggregation over the target-sorted layout.
+    Returns aggr ``[T, C, Dout]`` in ``x.dtype``.
+
+    ``edge_dtype=torch.bfloat16`` casts the gathered tables and every
+    per-edge ``[E, D]`` tensor to bf16 while logits, softmax and all segment
+    accumulations stay f32. ``softmax_tilemax`` selects the per-tile-max
+    softmax (``"on"``/True); the runtime-guarded ``"auto"`` form is not
+    ported yet."""
+    if softmax_tilemax == "auto":
+        raise NotImplementedError("softmax_tilemax='auto' is not ported yet")
+    T, C, Din = x.shape
+    Dout = wq.shape[-1]
+    H, dk = n_heads, Dout // n_heads
+    N = T * C
+
+    q = typed_linear(x, wq, bq).reshape(T, C, H, dk)
+    k = typed_linear(x, wk, bk).reshape(T, C, H, dk)
+    v = typed_linear(x, wv, bv).reshape(T, C, H, dk)
+    k_rel = _block_relation_transform(k, rel_att, em)
+    v_rel = _block_relation_transform(v, rel_msg, em)
+    B = k_rel.shape[0]
+    k_rel = k_rel.reshape(B * C, Dout)
+    v_rel = v_rel.reshape(B * C, Dout)
+
+    use_rte = rte_vec is not None
+    if use_rte:
+        L = rte_vec.shape[0]
+        k_tab = _rte_block_tables(rte_vec, wk, rel_att, em, H, dk).reshape(B * L, Dout)
+        v_tab = _rte_block_tables(rte_vec, wv, rel_msg, em, H, dk).reshape(B * L, Dout)
+        if se.tab_sel is not None:
+            k_tab, v_tab = _tab_select(k_tab, v_tab, se.tab_sel)
+    else:
+        k_tab = v_tab = None
+
+    pri_e = se.rel_onehot @ rel_pri.float()              # [E, H]
+
+    q_n = q.reshape(N, Dout)
+    if edge_dtype is not None:
+        q_n = q_n.to(edge_dtype)
+        k_rel = k_rel.to(edge_dtype)
+        v_rel = v_rel.to(edge_dtype)
+        if use_rte:
+            k_tab = k_tab.to(edge_dtype)
+            v_tab = v_tab.to(edge_dtype)
+
+    aggr = hgt_edge_stage(
+        q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
+        use_rte=use_rte, seg_pallas=seg_pallas,
+        softmax_tilemax=bool(softmax_tilemax),
+    )
+    return aggr.reshape(T, C, Dout).to(x.dtype)

@@ -1,0 +1,302 @@
+"""Target-sorted edge view — the host layout of the scatter-free forward.
+
+Counterpart of the numpy path of :mod:`pyhgt_tpu.sampling.sorted_batch`
+(its ``sort_edges(native=False)``), as far as the inference forward reads
+it; every field here is bit-identical to the JAX package's. At batch-build
+time the host precomputes:
+
+- edges permuted so ``edge_tgt`` is globally non-decreasing (padding last);
+- ``gidx`` (index into the per-block relation-transformed node banks) and
+  ``tabidx`` (index into the per-(block, Δt) RTE tables), both permuted;
+- ``rel_onehot [E, R]``: relation membership as f32 (padded rows zero);
+- the tiled-reduction aux of the target grouping (``tl / live_* /
+  seg_ptr2``) that the narrow ``[E, H]`` softmax sums read;
+- the :class:`~pyhgt_tpu_torch.ops.pallas_seg.PallasSegAux` of the target
+  grouping that the wide aggregation kernel reads;
+- optionally (``tab_cap``) the per-block occupied-Δt compaction of the RTE
+  table space (``tab_sel``).
+
+The source and tab groupings, read only by the backward, and the C++
+batch-prep path come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
+from pyhgt_tpu_torch.ops.pallas_seg import PK, PW, PallasSegAux
+from pyhgt_tpu_torch.ops.rte import RTE_MAX_LEN
+from pyhgt_tpu_torch.sampling.batch import BatchLayout, SubgraphBatch
+
+REDUCE_TILE = 128
+
+
+@dataclasses.dataclass
+class SortedEdges:
+    """Host arrays of the sorted edge stage (all [E] unless noted);
+    :meth:`to` moves them to a device as tensors.
+
+    ``tl_tgt`` is each edge's local segment rank within its 128-edge tile,
+    ``live_idx_tgt`` lists the ≤ S+E/128 live (tile, rank) partial rows in
+    segment order, ``live_last_tgt`` the flat index of each live row's last
+    edge, ``live_key_tgt`` its segment id, and ``seg_ptr2_tgt`` the
+    second-level CSR over live rows.
+    """
+
+    edge_src: np.ndarray      # flat source node index, tgt-sorted order
+    edge_tgt: np.ndarray      # flat target node (masked edges: N - 1)
+    edge_mask: np.ndarray     # bool
+    gidx: np.ndarray          # into [B*C] relation-transformed node banks
+    tabidx: np.ndarray        # into [B*L] (or compact [B*cap]) RTE tables
+    rel_onehot: np.ndarray    # [E, R] f32
+    tl_tgt: np.ndarray        # [E]
+    live_idx_tgt: np.ndarray  # [Mt]
+    live_key_tgt: np.ndarray  # [Mt]
+    live_last_tgt: np.ndarray  # [Mt]
+    seg_ptr2_tgt: np.ndarray  # [N+1]
+    pseg_tgt: PallasSegAux
+    # tab compaction: [B*cap] original table row per compact row; None =
+    # uncompacted
+    tab_sel: Optional[np.ndarray] = None
+
+    def to(self, device) -> "SortedEdges":
+        """Tensors on ``device``: indices int32 (as built: half the bytes of
+        int64 to copy), the mask bool, the one-hot f32, the kernel aux as
+        :meth:`PallasSegAux.to` gives it."""
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=device)
+        return SortedEdges(
+            edge_src=idx(self.edge_src), edge_tgt=idx(self.edge_tgt),
+            edge_mask=torch.as_tensor(self.edge_mask, device=device),
+            gidx=idx(self.gidx), tabidx=idx(self.tabidx),
+            rel_onehot=torch.as_tensor(self.rel_onehot, device=device),
+            tl_tgt=idx(self.tl_tgt), live_idx_tgt=idx(self.live_idx_tgt),
+            live_key_tgt=idx(self.live_key_tgt),
+            live_last_tgt=idx(self.live_last_tgt),
+            seg_ptr2_tgt=idx(self.seg_ptr2_tgt),
+            pseg_tgt=self.pseg_tgt.to(device),
+            tab_sel=None if self.tab_sel is None else idx(self.tab_sel),
+        )
+
+
+def pallas_seg_aux(key_sorted: np.ndarray, num_segments: int,
+                   K: int = PK, W: int = PW,
+                   v: int = 0) -> Optional[PallasSegAux]:
+    """Host aux for :func:`~pyhgt_tpu_torch.ops.pallas_seg.live_partials`
+    over one grouping.
+
+    ``key_sorted [E]`` non-decreasing (sentinel ``num_segments`` for padded
+    edges, which therefore land in trailing live rows that ``ptr2`` never
+    selects). All output shapes are static functions of (E, num_segments,
+    K, W). Tile t's distinct segments get consecutive ranks, and row
+    ``live_off[t] + rank`` (= ``blk[t]*W + loc``) is that pair's own row.
+
+    ``v`` is the rank cap: the most live rows a tile may add, so ``loc``
+    lies in ``[0, W + v)``. Returns ``None`` when a batch violates the cap
+    (the caller falls back to the legacy ``W = K`` aux).
+    """
+    E = key_sorted.shape[0]
+    if E % K:
+        raise ValueError(f"edge count {E} not a multiple of the {K} tile")
+    if W < (v or K):
+        raise ValueError(f"W = {W} < V = {v or K}")
+    tiles = E // K
+    k2 = key_sorted.reshape(tiles, K)
+    new = np.ones((tiles, K), dtype=bool)
+    new[:, 1:] = k2[:, 1:] != k2[:, :-1]
+    rank = (np.cumsum(new, axis=1) - 1).astype(np.int64)
+    n_live = rank[:, -1] + 1
+    if v and int(n_live.max()) > v:
+        return None
+    live_off = np.concatenate([[0], np.cumsum(n_live)])       # [tiles+1]
+    loc = ((live_off[:-1] % W)[:, None] + rank).astype(np.int32)
+    blk = (live_off[:-1] // W).astype(np.int32)               # [tiles]
+    # static block-count bound: live rows <= num_segments + tiles, plus one
+    NB = (num_segments + tiles + W - 1) // W + 1
+    tail = np.minimum(blk[-1] + 1 + np.arange(NB - 1), NB - 1)
+    blk_ext = np.concatenate([blk, tail]).astype(np.int32)
+    pos = np.flatnonzero(new.reshape(E))      # first edge of each live row
+    live_key = key_sorted[pos]
+    ptr2 = np.searchsorted(live_key, np.arange(num_segments + 1)).astype(
+        np.int32
+    )
+    live_key_ext = np.full(NB * W, num_segments, dtype=np.int32)
+    live_key_ext[: len(pos)] = live_key
+    return PallasSegAux(loc=loc, blk=blk_ext, ptr2=ptr2,
+                        live_key=live_key_ext, w=W, v=v)
+
+
+def _compact_tab(tabidx: np.ndarray, B: int, L: int, cap: int):
+    """Per-block occupied-Δt compaction of the RTE table space.
+
+    ``tabidx = block*L + Δt`` spans B*L rows, but real graphs occupy few Δt
+    slots per block (the reference caps the span at 120,
+    ``pyHGT/data.py:250``). Remapping Δt to its rank among the block's
+    occupied slots shrinks the table space to B*cap.
+
+    Returns ``(tabidx_c, tab_sel)`` — the remapped edge index and the
+    [B*cap] original row per compact row (dead compact slots point at their
+    block's last original slot; no edge maps there) — or ``(None, None)``
+    when a block occupies more than ``cap`` slots (the caller keeps the
+    uncompacted table).
+    """
+    used = np.zeros(B * L, dtype=bool)
+    used[tabidx] = True
+    u2 = used.reshape(B, L)
+    occ = u2.sum(axis=1)
+    if int(occ.max(initial=0)) > cap:
+        return None, None
+    rank = np.cumsum(u2, axis=1) - 1                      # [B, L]
+    slot_rank = np.where(u2, rank, 0).reshape(B * L)
+    comp_of = (np.arange(B * L) // L * cap + slot_rank).astype(np.int32)
+    tabidx_c = comp_of[tabidx]
+    tab_sel = np.empty(B * cap, np.int32)
+    for b in range(B):
+        rows = np.flatnonzero(u2[b])
+        tab_sel[b * cap: b * cap + len(rows)] = b * L + rows
+        tab_sel[b * cap + len(rows): (b + 1) * cap] = b * L + (L - 1)
+    return tabidx_c, tab_sel
+
+
+def _tiled_aux(key_sorted: np.ndarray, num_segments: int, K: int = REDUCE_TILE):
+    """Host aux for the hierarchical tiled reduction over one grouping.
+
+    ``key_sorted [E]``: non-decreasing segment ids (sentinel
+    ``num_segments`` for padding). Returns (tile_local [E], live_idx [M],
+    live_key [M], live_last [M], seg_ptr2 [S+1]) with static
+    M = num_segments + E//K (padded live rows point at the extra zero row
+    ``E//K * K`` appended by the device op).
+    """
+    E = key_sorted.shape[0]
+    if E % K:
+        raise ValueError(f"edge count {E} not a multiple of the {K} tile")
+    tiles = E // K
+    k2 = key_sorted.reshape(tiles, K)
+    new = np.ones((tiles, K), dtype=bool)
+    new[:, 1:] = k2[:, 1:] != k2[:, :-1]
+    rank = np.cumsum(new, axis=1) - 1
+    tl = rank.reshape(E).astype(np.int32)
+
+    pos = np.flatnonzero(new.reshape(E))          # first edge of each live row
+    t_of = pos // K
+    row = (t_of * K + tl[pos]).astype(np.int32)
+    k_of = key_sorted[pos].astype(np.int32)
+    last = (np.r_[pos[1:], E] - 1).astype(np.int32)
+
+    M = num_segments + tiles
+    n = len(pos)
+    live_idx = np.full(M, tiles * K, dtype=np.int32)     # extra zero row
+    live_key = np.full(M, num_segments, dtype=np.int32)  # sentinel
+    live_last = np.full(M, E, dtype=np.int32)            # extra NEG row
+    live_idx[:n] = row
+    live_key[:n] = k_of
+    live_last[:n] = last
+    seg_ptr2 = np.searchsorted(live_key, np.arange(num_segments + 1)).astype(
+        np.int32
+    )
+    return tl, live_idx, live_key, live_last, seg_ptr2
+
+
+def sort_batch(batch: SubgraphBatch, layout: BatchLayout,
+               em: Optional[EdgeStaticMeta] = None, **kw) -> SortedEdges:
+    return sort_edges(batch.edge_src, batch.edge_tgt, batch.edge_dt,
+                      batch.edge_mask, layout, em, **kw)
+
+
+def sort_edges(
+    edge_src,
+    edge_tgt,
+    edge_dt,
+    edge_mask,
+    layout: BatchLayout,
+    em: Optional[EdgeStaticMeta] = None,
+    tgt_rank_cap: int = 0,
+    tab_cap: int = 0,
+) -> SortedEdges:
+    """Sort a batch's flat edge arrays by target and build the forward aux,
+    with the kernel aux's tile K = ``PK`` and block W = ``PW``.
+
+    ``tgt_rank_cap`` builds the target aux with W = V = cap when every tile
+    holds at most ``cap`` segments, else the legacy W = K aux. ``tab_cap``
+    compacts the RTE table space when every block occupies at most ``cap``
+    Δt slots.
+
+    Masked edges keep their OWN meta-block's last slot in ``gidx`` /
+    ``tabidx`` instead of a global sentinel (the JAX package's convention:
+    it keeps its source/tab-order aux layout-static); their rows are zero,
+    so sums are unchanged.
+    """
+    em = em or EdgeStaticMeta.from_layout(layout)
+    T, C = layout.num_types, layout.node_cap
+    N = T * C
+    E = layout.num_edges
+    B = len(layout.blocks)
+    L = RTE_MAX_LEN
+    R = layout.schema.num_relations
+
+    src0 = np.asarray(edge_src)
+    tgt = np.asarray(edge_tgt)
+    dt0 = np.asarray(edge_dt)
+    mask = np.asarray(edge_mask)
+
+    key = np.where(mask, tgt, N).astype(np.int32)  # padding sorts last
+    perm = np.argsort(key, kind="stable")
+    src, tgt, mask, key = src0[perm], tgt[perm], mask[perm], key[perm]
+    blk_e = em.edge_block[perm]
+    gidx = (src0 + em.gather_off)[perm]
+    gidx = np.where(mask, gidx, blk_e * C + (C - 1)).astype(np.int32)
+    tabidx = (em.edge_block * L + dt0)[perm]
+    tabidx = np.where(mask, tabidx, blk_e * L + (L - 1)).astype(np.int32)
+    rel = em.edge_rel[perm]
+    onehot = np.zeros((E, R), dtype=np.float32)
+    onehot[np.arange(E), rel] = mask  # padded rows are all-zero
+
+    # pad the flat edge axis to the kernel tile (extra edges are masked and
+    # sort last, so every downstream pointer stays correct)
+    padn = (-E) % PK
+    if padn:
+        src = np.concatenate([src, np.zeros(padn, src.dtype)])
+        tgt = np.concatenate([tgt, np.zeros(padn, tgt.dtype)])
+        mask = np.concatenate([mask, np.zeros(padn, bool)])
+        key = np.concatenate([key, np.full(padn, N, key.dtype)])
+        gidx = np.concatenate([gidx, np.full(padn, B * C - 1, gidx.dtype)])
+        tabidx = np.concatenate(
+            [tabidx, np.full(padn, B * L - 1, tabidx.dtype)]
+        )
+        onehot = np.concatenate([onehot, np.zeros((padn, R), np.float32)])
+    safe_tgt = np.where(mask, tgt, N - 1).astype(np.int32)
+
+    tab_sel = None
+    if tab_cap and tab_cap % 8 == 0 and tab_cap < L:
+        tabidx_c, tab_sel = _compact_tab(tabidx, B, L, tab_cap)
+        if tabidx_c is not None:
+            tabidx = tabidx_c
+
+    tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = _tiled_aux(key, N)
+    key64 = key.astype(np.int64)
+    pseg_tgt = None
+    if tgt_rank_cap:
+        pseg_tgt = pallas_seg_aux(key64, N, PK, tgt_rank_cap, v=tgt_rank_cap)
+    if pseg_tgt is None:
+        pseg_tgt = pallas_seg_aux(key64, N, PK, PW)
+
+    return SortedEdges(
+        edge_src=src.astype(np.int32),
+        edge_tgt=safe_tgt,
+        edge_mask=mask,
+        gidx=gidx,
+        tabidx=tabidx,
+        rel_onehot=onehot,
+        tl_tgt=tl_tgt,
+        live_idx_tgt=li_tgt,
+        live_key_tgt=lk_tgt,
+        live_last_tgt=ll_tgt,
+        seg_ptr2_tgt=sp2_tgt,
+        pseg_tgt=pseg_tgt,
+        tab_sel=tab_sel,
+    )
