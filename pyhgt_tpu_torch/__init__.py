@@ -3,9 +3,11 @@
 The JAX package stays the reference; this package mirrors its module paths
 (``pyhgt_tpu_torch/ops/sorted_hgt.py`` <-> ``pyhgt_tpu/ops/sorted_hgt.py``)
 and imports nothing of it, nor of JAX. What is ported so far is the
-inference forward of the flagship HGT model on the scatter-free sorted-edge
-path, with the target aggregation's segment sum as a hand-written Hopper
-kernel (:mod:`pyhgt_tpu_torch.ops.pallas_seg`).
+flagship HGT model on the scatter-free sorted-edge path: its inference
+forward and its training step (the edge stage's hand-written backward, NLL
+loss, global-norm clip, AdamW, the train bench), with the segment sums of
+the forward and the backward as hand-written Hopper kernels
+(:mod:`pyhgt_tpu_torch.ops.pallas_seg`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package.
+"""Carry parameter trees across between the JAX package and the port.
 
 The JAX package's ``Flagship.init_params`` (or a trained checkpoint's
 params) is a nested dict; as numpy arrays it reads::
@@ -12,7 +12,11 @@ params) is a nested dict; as numpy arrays it reads::
 
 The port keeps every HGT leaf under the same name and shape; only the flax
 ``Dense`` kernel ``[in, out]`` becomes the torch ``Linear`` weight
-``[out, in]``.
+``[out, in]``. The map is about names and shapes, not about what the
+leaves mean: it carries a tree of gradients or of updated parameters the
+same way (:func:`flax_to_state_dict`), and :func:`named_to_flax` brings the
+port's named tensors (``named_parameters()``, or their ``.grad``) back into
+the flax layout.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 
 def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``FlagshipModel`` state dict from a flax param tree."""
+    """The port's ``FlagshipModel`` state-dict layout of a flax-shaped tree
+    (parameters, gradients, optimizer moments)."""
     p = tree["params"] if "params" in tree else tree
     out: Dict[str, torch.Tensor] = {}
 
@@ -43,6 +48,29 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     put("clf.linear.weight", np.asarray(dense["kernel"]).T)
     put("clf.linear.bias", dense["bias"])
     return out
+
+
+def named_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The flax layout ``{"params": {"gnn": ..., "clf": ...}}`` (numpy
+    leaves) of the port's tensors keyed as in ``named_parameters()``: the
+    inverse of :func:`flax_to_state_dict`."""
+    gnn: Dict = {}
+    dense: Dict = {}
+    for key, t in named.items():
+        arr = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[:2] == ["gnn", "convs"]:
+            conv = gnn.setdefault(f"convs_{parts[2]}", {"base_conv": {}})
+            conv["base_conv"][parts[3]] = arr
+        elif parts[0] == "gnn":
+            gnn[parts[1]] = arr
+        elif key == "clf.linear.weight":
+            dense["kernel"] = arr.T
+        elif key == "clf.linear.bias":
+            dense["bias"] = arr
+        else:
+            raise KeyError(f"no flax leaf for {key}")
+    return {"params": {"gnn": gnn, "clf": {"Dense_0": dense}}}
 
 
 def load_flax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:

@@ -28,50 +28,11 @@
 // shapes (226,560 x 512 bf16 in, 14,016 x 512 f32 out) that is ~262 MB, or
 // ~78 us at 3.35 TB/s.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "seg_common.cuh"
 
 namespace {
 
 constexpr int kUnroll = 8;  // rows loaded ahead per thread
-
-// 16 bytes of input per thread per row: 4 f32 or 8 bf16 values.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  using Raw = float4;
-  __device__ static void add(const Raw& r, float* acc) {
-    acc[0] += r.x; acc[1] += r.y; acc[2] += r.z; acc[3] += r.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  using Raw = uint4;
-  // bf16 -> f32 is exact: the bf16 bits are the high half of the f32 word
-  // (element 2i is the low half of 32-bit word i, little-endian).
-  __device__ static void add(const Raw& r, float* acc) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[2 * i] += __uint_as_float(w[i] << 16);
-      acc[2 * i + 1] += __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-template <int N>
-__device__ __forceinline__ void flush(float* __restrict__ out, int64_t row,
-                                      int col, int D, float* acc) {
-  float4* dst = reinterpret_cast<float4*>(out + row * D + col);
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                         acc[4 * i + 3]);
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-}
 
 template <typename T>
 __global__ void live_partials_kernel(const T* __restrict__ data,
@@ -113,7 +74,7 @@ __global__ void live_partials_kernel(const T* __restrict__ data,
           flush<N>(out, base + cur, col, D, acc);
           cur = l;
         }
-        V::add(raw[u], acc);
+        add_row<T>(raw[u], acc);
       }
     }
   }

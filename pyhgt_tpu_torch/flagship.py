@@ -1,7 +1,8 @@
 """Flagship model assembly — an ogbn-mag-shaped HGT node classifier.
 
-Counterpart of :mod:`pyhgt_tpu.flagship`, as far as the inference forward
-reads it: schema → layout → model → sort → log-probs of the paper seeds.
+Counterpart of :mod:`pyhgt_tpu.flagship` on one device: schema → layout →
+model → sort → log-probs of the paper seeds (serving) or their NLL loss
+(training).
 The graph shape mirrors ogbn-mag (paper/author/field/institution with
 writes/cites/has-topic/affiliated-with + reverses); the ``bench`` preset is
 the published reproduction config (4 layers, n_hid 512, 8 heads, RTE on).
@@ -25,6 +26,7 @@ from pyhgt_tpu_torch.models.model import GNN, Classifier
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
 from pyhgt_tpu_torch.sampling.batch import BatchLayout, SubgraphBatch
 from pyhgt_tpu_torch.sampling.sorted_batch import SortedEdges, sort_batch
+from pyhgt_tpu_torch.train.step import nll_loss
 from pyhgt_tpu_torch.utils.synth import synth_batch
 
 
@@ -47,8 +49,10 @@ def flagship_schema() -> GraphSchema:
 
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
-    """The forward's subset of the JAX package's ``FlagshipConfig``; the
-    training and multi-chip knobs arrive with their slices."""
+    """The single-device subset of the JAX package's ``FlagshipConfig``.
+    Its backward always takes the ``permute`` strategy (``edge_bwd``); the
+    other strategies, ``param_bf16``, the src caps and the multi-chip knobs
+    are not ported yet."""
 
     node_cap: int
     edge_cap: int
@@ -59,6 +63,8 @@ class FlagshipConfig:
     n_classes: int
     n_seed: int
     dropout: float = 0.2
+    save_kv: bool = False      # keep the gathered per-edge K/V for the
+    # backward: 2 E×D saved buffers for 2 fewer backward gathers per layer
     edge_bf16: bool = False    # per-edge stage in bf16, sums in f32
     seg_pallas: bool = False   # wide segment sums through live_partials
     tab_cap: int = 0           # per-block occupied-Δt compaction of the
@@ -79,7 +85,7 @@ PRESETS: Dict[str, FlagshipConfig] = {
     "bench": FlagshipConfig(
         node_cap=3328, edge_cap=26624, in_dim=512, n_hid=512,
         n_heads=8, n_layers=4, n_classes=349, n_seed=128,
-        edge_bf16=True, seg_pallas=True, seg_rank_cap=64, tab_cap=64,
+        save_kv=True, edge_bf16=True, seg_pallas=True, seg_rank_cap=64, tab_cap=64,
         softmax_tilemax="on",
     ),
 }
@@ -98,13 +104,13 @@ class FlagshipModel(nn.Module):
             cfg.in_dim, cfg.n_hid, num_types, num_relations, cfg.n_heads,
             cfg.n_layers, generator=generator, dropout=cfg.dropout,
             prev_norm=True, last_norm=True, use_rte=True,
-            edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
+            save_kv=cfg.save_kv, edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
             softmax_tilemax=cfg.softmax_tilemax,
         )
         self.clf = Classifier(cfg.n_hid, cfg.n_classes, generator=generator)
 
-    def forward(self, node_feat, node_mask, se, em):
-        h = self.gnn(node_feat, node_mask, se, em)
+    def forward(self, node_feat, node_mask, se, em, generator=None):
+        h = self.gnn(node_feat, node_mask, se, em, generator)
         seeds = h[0, : self.cfg.n_seed]  # paper seeds come first by contract
         return self.clf(seeds)
 
@@ -115,27 +121,58 @@ class Flagship:
     schema: GraphSchema
     layout: BatchLayout
     em: EdgeStaticMeta         # host arrays (the sort reads them)
-    model: FlagshipModel       # in eval mode, on ``device``
+    model: FlagshipModel       # on ``device``
     device: torch.device
+    seed: int = 0
 
     def __post_init__(self):
         self.em_dev = self.em.to(self.device)
+        # the dropout masks' own stream, on the model's device
+        self.dropout_gen = torch.Generator(device=self.device)
+        self.dropout_gen.manual_seed(self.seed)
 
-    def sort(self, batch: SubgraphBatch) -> SortedEdges:
-        """Host-side sort + aux of one batch (numpy)."""
+    def sort(self, batch: SubgraphBatch, with_backward: bool = True
+             ) -> SortedEdges:
+        """Host-side sort + aux of one batch (numpy); ``with_backward=False``
+        leaves out what only a training step reads."""
         c = self.cfg
         return sort_batch(batch, self.layout, self.em,
-                          tgt_rank_cap=c.seg_rank_cap, tab_cap=c.tab_cap)
+                          tgt_rank_cap=c.seg_rank_cap, tab_cap=c.tab_cap,
+                          with_backward=with_backward)
+
+    def to_device(self, batch: SubgraphBatch, se: SortedEdges, labels=None):
+        """``(batch, se, labels)`` with what the model reads as tensors on
+        the model's device, so a loop over one batch copies it once."""
+        dev = self.device
+        batch = dataclasses.replace(
+            batch, node_feat=torch.as_tensor(batch.node_feat, device=dev),
+            node_mask=torch.as_tensor(batch.node_mask, device=dev))
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=dev).long()
+        return batch, se.to(dev), labels
+
+    def _logp(self, batch, se):
+        return self.model(batch.node_feat, batch.node_mask, se, self.em_dev,
+                          generator=self.dropout_gen)
 
     @torch.no_grad()
     def forward(self, batch: SubgraphBatch, se: SortedEdges = None):
         """Log-probs ``[n_seed, n_classes]`` of one batch, on the model's
-        device (``se``: the batch's :meth:`sort`, made here if absent)."""
-        se = self.sort(batch) if se is None else se
-        dev = self.device
-        node_feat = torch.as_tensor(batch.node_feat, device=dev)
-        node_mask = torch.as_tensor(batch.node_mask, device=dev)
-        return self.model(node_feat, node_mask, se.to(dev), self.em_dev)
+        device, in eval mode (``se``: the batch's :meth:`sort`, made here
+        if absent)."""
+        se = self.sort(batch, with_backward=False) if se is None else se
+        self.model.eval()
+        return self._logp(*self.to_device(batch, se)[:2])
+
+    def loss(self, batch: SubgraphBatch, se: SortedEdges, labels):
+        """The training loss of one batch (the JAX package's
+        ``loss_fn_single``): the forward in train mode, with dropout masks
+        from this flagship's seeded generator, and the NLL of the seeds'
+        labels. ``batch``, ``se`` and ``labels`` may be host arrays or
+        :meth:`to_device`'s tensors."""
+        self.model.train()
+        batch, se, labels = self.to_device(batch, se, labels)
+        return nll_loss(self._logp(batch, se), labels)
 
 
 def build_flagship(preset: str = "tiny", device=None, seed: int = 0,
@@ -155,7 +192,7 @@ def build_flagship(preset: str = "tiny", device=None, seed: int = 0,
                           generator=gen)
     model = model.to(dev).eval()
     return Flagship(cfg=cfg, schema=schema, layout=layout, em=em,
-                    model=model, device=dev)
+                    model=model, device=dev, seed=seed)
 
 
 def synth_flagship_batch(fl: Flagship, seed: int = 0, edge_fill: float = 1.0):

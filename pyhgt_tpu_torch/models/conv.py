@@ -47,6 +47,17 @@ def glorot_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         return t.uniform_(-a, a, generator=generator)
 
 
+def dropout(x, p: float, training: bool, generator=None):
+    """Inverted dropout (flax ``nn.Dropout``: keep with probability 1 - p,
+    scale the kept values by 1 / (1 - p)) whose mask is drawn from
+    ``generator``, a ``torch.Generator`` on x's device, so a training step
+    is reproducible from its seed; ``None`` draws from the global one."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
+
+
 def _typed_layer_norm(x, scale, bias, eps=1e-5):
     """Per-type LayerNorm: x [T, C, D], scale/bias [T, D]; biased variance
     as in ``jnp.var``."""
@@ -63,13 +74,14 @@ class HGTConv(nn.Module):
     :class:`~pyhgt_tpu_torch.sampling.sorted_batch.SortedEdges` and ``em``
     an :class:`~pyhgt_tpu_torch.ops.hgt.EdgeStaticMeta`, both on x's
     device. Parameters are initialized from ``generator`` with the JAX
-    package's distributions.
+    package's distributions. In training mode the update half drops out
+    after its linear, with the mask drawn from the forward's ``generator``.
     """
 
     def __init__(self, in_dim, out_dim, num_types, num_relations, n_heads,
                  *, generator: torch.Generator, dropout=0.2, use_norm=True,
-                 use_rte=True, edge_bf16=False, seg_pallas=False,
-                 softmax_tilemax=""):
+                 use_rte=True, save_kv=False, edge_bf16=False,
+                 seg_pallas=False, softmax_tilemax=""):
         super().__init__()
         T, R, H = num_types, num_relations, n_heads
         Din, Dout = in_dim, out_dim
@@ -79,6 +91,7 @@ class HGTConv(nn.Module):
         self.in_dim, self.n_heads = in_dim, n_heads
         self.use_norm, self.use_rte = use_norm, use_rte
         self.edge_bf16, self.seg_pallas = edge_bf16, seg_pallas
+        self.save_kv, self.dropout = save_kv, dropout
         self.softmax_tilemax = softmax_tilemax
 
         def p(*shape, init):
@@ -105,7 +118,6 @@ class HGTConv(nn.Module):
         self.rel_msg = p(R, H, dk, dk, init="glorot")
         # learnable per-type skip gate, init 1 (conv.py:47)
         self.skip = p(T, init=1.0)
-        self.drop = nn.Dropout(dropout)
         if use_norm:
             self.ln_scale = p(T, Dout, init=1.0)
             self.ln_bias = p(T, Dout, init=0.0)
@@ -122,7 +134,7 @@ class HGTConv(nn.Module):
         """[L, Din] — sin table through the trainable RTE linear."""
         return self.rte_table @ self.rte_w + self.rte_b
 
-    def forward(self, x, node_mask, se, em):
+    def forward(self, x, node_mask, se, em, generator=None):
         aggr = hgt_conv_core_sorted(
             x, se, em,
             wq=self.wq, bq=self.bq, wk=self.wk, bk=self.bk,
@@ -130,6 +142,7 @@ class HGTConv(nn.Module):
             rel_pri=self.rel_pri, rel_att=self.rel_att, rel_msg=self.rel_msg,
             n_heads=self.n_heads,
             rte_vec=self.rte_vectors() if self.use_rte else None,
+            save_kv=self.save_kv,
             edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
             seg_pallas=self.seg_pallas,
             softmax_tilemax=self.softmax_tilemax,
@@ -137,7 +150,7 @@ class HGTConv(nn.Module):
         # update half (conv.py:114-134): exact (erf) gelu as the reference's
         # F.gelu (conv.py:119), per-type A linear, sigmoid skip gate, norm
         trans = typed_linear(F.gelu(aggr), self.wa, self.ba)
-        trans = self.drop(trans)
+        trans = dropout(trans, self.dropout, self.training, generator)
         alpha = torch.sigmoid(self.skip)[:, None, None]
         out = trans * alpha + x * (1.0 - alpha)
         if self.use_norm:

@@ -9,41 +9,45 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pyhgt_tpu_torch.models.conv import HGTConv, lecun_normal_
+from pyhgt_tpu_torch.models.conv import HGTConv, dropout, lecun_normal_
 from pyhgt_tpu_torch.ops.hgt import typed_linear
 
 
 class GNN(nn.Module):
     """Per-type input adaptation + a stack of HGT layers
     (``model.py:54-80``). The reference's per-type ``adapt_ws`` Linear loop
-    is one batched ``[T,C,Din]×[T,Din,n_hid]`` matmul here."""
+    is one batched ``[T,C,Din]×[T,Din,n_hid]`` matmul here. In training
+    mode the adapted input drops out, as every layer's update does, with
+    masks drawn from the forward's ``generator``."""
 
     def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
                  n_layers, *, generator: torch.Generator, dropout=0.2,
                  prev_norm=False, last_norm=False, use_rte=True,
-                 edge_bf16=False, seg_pallas=False, softmax_tilemax=""):
+                 save_kv=False, edge_bf16=False, seg_pallas=False,
+                 softmax_tilemax=""):
         super().__init__()
         self.adapt_w = nn.Parameter(
             lecun_normal_(torch.empty(num_types, in_dim, n_hid), generator))
         self.adapt_b = nn.Parameter(torch.zeros(num_types, n_hid))
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.convs = nn.ModuleList(
             HGTConv(
                 n_hid, n_hid, num_types, num_relations, n_heads,
                 generator=generator, dropout=dropout,
                 use_norm=last_norm if li == n_layers - 1 else prev_norm,
-                use_rte=use_rte, edge_bf16=edge_bf16, seg_pallas=seg_pallas,
+                use_rte=use_rte, save_kv=save_kv, edge_bf16=edge_bf16,
+                seg_pallas=seg_pallas,
                 softmax_tilemax=softmax_tilemax,
             )
             for li in range(n_layers)
         )
 
-    def forward(self, node_feat, node_mask, se, em):
+    def forward(self, node_feat, node_mask, se, em, generator=None):
         h = torch.tanh(typed_linear(node_feat, self.adapt_w, self.adapt_b))
-        h = self.drop(h)
+        h = dropout(h, self.dropout, self.training, generator)
         h = h * node_mask[..., None]
         for conv in self.convs:
-            h = conv(h, node_mask, se, em)
+            h = conv(h, node_mask, se, em, generator)
         return h
 
 

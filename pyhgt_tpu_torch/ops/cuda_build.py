@@ -4,7 +4,8 @@ Each ``pyhgt_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library that
 :mod:`ctypes` loads — no PyTorch headers, so a build takes seconds. Builds
 land in ``pyhgt_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source, so an edited source rebuilds and an unchanged one is reused.
+source and the shared headers, so an edited source rebuilds and an unchanged
+one is reused.
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no ``nvcc``.
 """
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source and
+    of every shared header (``csrc/*.cuh``)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,7 +1,7 @@
-"""Scatter-free HGT edge stage over target-sorted edges — the forward.
+"""Scatter-free HGT edge stage over target-sorted edges.
 
-Counterpart of :mod:`pyhgt_tpu.ops.sorted_hgt`, as far as the inference
-forward reads it. The edge stage is: gather the K/V rows of each edge
+Counterpart of :mod:`pyhgt_tpu.ops.sorted_hgt`, as far as the flagship's
+forward and its permute-strategy backward read it. The edge stage is: gather the K/V rows of each edge
 (relation-transformed node banks + RTE tables), score against the target's
 query, softmax per target segment, and sum the weighted messages per
 target. Per-segment reductions follow the JAX package's hierarchical
@@ -15,9 +15,12 @@ scheme over the host aux of :mod:`pyhgt_tpu_torch.sampling.sorted_batch`:
 - level 2 adds the few live rows of each segment together.
 
 The JAX package wraps the edge stage in a ``jax.custom_vjp``; here it is a
-plain forward function. Its ``torch.autograd.Function`` comes with the
-training slice. The algebra matches the reference
-(``pyHGT/conv.py:60-111``).
+``torch.autograd.Function`` (:func:`hgt_edge_stage`) whose backward is the
+JAX package's scatter-free ``_edge_bwd`` in its ``permute`` strategy: the
+gradients of the gathered K/V banks and RTE tables are segment sums over
+the src and tab groupings (the ``live_partials_pair`` kernel), never
+scatters. The ``recompute``, ``src_direct`` and ``slab`` strategies are not
+ported yet. The algebra matches the reference (``pyHGT/conv.py:60-111``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from pyhgt_tpu_torch.ops.hgt import (
     _rte_block_tables,
     typed_linear,
 )
-from pyhgt_tpu_torch.ops.pallas_seg import live_partials
+from pyhgt_tpu_torch.ops.pallas_seg import live_partials, live_partials_pair
 
 NEG = -1e30
 _TILE = 128  # narrow-reduction tile (the host aux's REDUCE_TILE)
@@ -135,25 +138,53 @@ def _pallas_ok(data, paux, use_pallas: bool) -> bool:
     )
 
 
-def _seg_sum_grouped(data, se, use_pallas: bool):
-    """Per-target-segment sum of tgt-ordered ``data``: wide 2-D tensors
-    through the ``live_partials`` kernel when the batch carries its aux."""
-    paux = se.pseg_tgt
+_GROUPING_AUX = {
+    "tgt": ("tl_tgt", "live_idx_tgt", "seg_ptr2_tgt", "pseg_tgt"),
+    "src": ("tl_src", "live_idx_src", "seg_ptr2_src", "pseg_src"),
+    "tab": ("tl_tab", "live_idx_tab", "seg_ptr2_tab", "pseg_tab"),
+}
+
+
+def _seg_sum_grouped(data, se, grouping: str, use_pallas: bool):
+    """Per-segment sum of ``data`` (already in ``grouping``'s edge order):
+    wide 2-D tensors through the ``live_partials`` kernel when the batch
+    carries its aux."""
+    tl_n, li_n, sp2_n, paux_n = _GROUPING_AUX[grouping]
+    paux = getattr(se, paux_n)
     if _pallas_ok(data, paux, use_pallas):
         live = live_partials(data, paux)
         return seg_sum_csr(live, paux.ptr2)
-    return seg_sum_tiled(data, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+    return seg_sum_tiled(data, getattr(se, tl_n), getattr(se, li_n),
+                         getattr(se, sp2_n))
 
 
-def _seg_sum_weighted(wgt, val, H, dk, se, use_pallas: bool, out_dtype):
-    """Segment sum of ``head_expand(wgt) ⊙ val`` over the target grouping
-    (the JAX package's ``WEIGHTED_KERNEL = False`` branch: the product is
-    formed in ``out_dtype``, the sum accumulates in f32)."""
+def _seg_sum_grouped_pair(d1, d2, se, grouping: str, use_pallas: bool):
+    """Segment sums of TWO same-shape tensors in the same grouping order:
+    through :func:`~pyhgt_tpu_torch.ops.pallas_seg.live_partials_pair` (one
+    pass, ``loc`` read once: the backward's g_k/g_v pairs) when eligible,
+    otherwise two independent reductions.
+
+    The JAX package's two-region (``pseg_src_lo``) and singleton-split
+    (``pseg_src_multi``) src branches are not ported yet; they wait for
+    their host aux."""
+    paux = getattr(se, _GROUPING_AUX[grouping][3])
+    if _pallas_ok(d1, paux, use_pallas) and d1.shape == d2.shape:
+        l1, l2 = live_partials_pair(d1, d2, paux)
+        return seg_sum_csr(l1, paux.ptr2), seg_sum_csr(l2, paux.ptr2)
+    return (_seg_sum_grouped(d1, se, grouping, use_pallas),
+            _seg_sum_grouped(d2, se, grouping, use_pallas))
+
+
+def _seg_sum_weighted(wgt, val, H, dk, se, grouping: str, use_pallas: bool,
+                      out_dtype):
+    """Segment sum of ``head_expand(wgt) ⊙ val`` over one grouping (the JAX
+    package's ``WEIGHTED_KERNEL = False`` branch: the product is formed in
+    ``out_dtype``, the sum accumulates in f32)."""
     if out_dtype == torch.bfloat16:
         msg = _head_expand_like(wgt, H, dk, out_dtype) * val.to(out_dtype)
     else:
         msg = (_head_expand(wgt, H, dk) * val.float()).to(out_dtype)
-    return _seg_sum_grouped(msg, se, use_pallas)
+    return _seg_sum_grouped(msg, se, grouping, use_pallas)
 
 
 def _head_sum(x, H, dk):
@@ -190,8 +221,10 @@ def _gather_kv(k_rel, v_rel, k_tab, v_tab, gidx, tabidx, use_rte):
 
 
 def _attention(q_e, k_e, pri_e, mask, H, dk):
-    att = _head_sum_prod(q_e, k_e, H, dk) / math.sqrt(dk) * pri_e.float()
-    return torch.where(mask[:, None], att, torch.full_like(att, NEG))
+    """``(pre, att)``: the prior-less logits and the masked logits."""
+    pre = _head_sum_prod(q_e, k_e, H, dk) / math.sqrt(dk)
+    att = pre * pri_e.float()
+    return pre, torch.where(mask[:, None], att, torch.full_like(att, NEG))
 
 
 def _softmax_tiled(att, se):
@@ -244,28 +277,141 @@ def _softmax_tilemax(att, se, K=_TILE):
     return ex / den_e
 
 
-def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
-                   use_rte, seg_pallas=False, softmax_tilemax=False):
-    """The edge stage: returns ``aggr [N, D]`` (f32). Inputs as in the JAX
-    package's ``hgt_edge_stage``: ``q_n [N, D]`` target queries,
-    ``k_rel/v_rel [B*C, D]`` relation-transformed banks, ``k_tab/v_tab``
-    RTE tables, ``pri_e [E, H]``."""
+def _edge_fwd_impl(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk,
+                   use_rte, seg_pallas, softmax_tilemax):
     dt = k_rel.dtype
     k_e, v_e = _gather_kv(k_rel, v_rel, k_tab, v_tab, se.gidx, se.tabidx,
                           use_rte)
     q_e = q_n[se.edge_tgt]
-    att = _attention(q_e, k_e, pri_e, se.edge_mask, H, dk)
+    pre, att = _attention(q_e, k_e, pri_e, se.edge_mask, H, dk)
     if softmax_tilemax:
         w = _softmax_tilemax(att, se)
     else:
         w = _softmax_tiled(att, se)
-    return _seg_sum_weighted(w, v_e, H, dk, se, seg_pallas, dt)
+    aggr = _seg_sum_weighted(w, v_e, H, dk, se, "tgt", seg_pallas, dt)
+    return aggr, w, pre, k_e, v_e
+
+
+def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
+              H, dk, use_rte, seg_pallas):
+    """Scatter-free backward of the edge stage, the JAX package's
+    ``permute`` strategy: g_k_e / g_v_e are formed once in tgt order, each
+    [E, D] tensor is permute-gathered into src order, and the bank
+    gradients are segment sums there. The RTE-table gradients come straight
+    off the src-ordered pair through the tab-window aux when the batch has
+    one; otherwise off a second permute into tab order."""
+    dt = k_rel.dtype
+    mask = se.edge_mask
+    if kv is not None:
+        k_e, v_e = kv                      # saved: no backward re-gathers
+    else:
+        k_e, v_e = _gather_kv(k_rel, v_rel, k_tab, v_tab, se.gidx, se.tabidx,
+                              use_rte)
+
+    g_aggr_l = g_aggr.to(dt)                               # [N, D] table
+    g_msg = g_aggr_l[se.edge_tgt]                          # node gather
+    g_w = _head_sum_prod(g_msg, v_e, H, dk)                # [E, H]
+
+    # softmax backward: g_att = w * (g_w - sum_seg(w * g_w))
+    s_n = seg_sum_tiled(w * g_w, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+    g_att = w * (g_w - s_n[se.edge_tgt])
+    g_att = torch.where(mask[:, None], g_att, torch.zeros_like(g_att))
+
+    g_pri_e = g_att * pre                                  # [E, H]
+    coef = g_att * pri_e.float() / math.sqrt(dk)
+
+    # tgt-grouped: g_q_n (k_e is already in tgt order)
+    g_q_n = _seg_sum_weighted(coef, k_e, H, dk, se, "tgt", seg_pallas, dt)
+
+    if dt == torch.bfloat16:
+        # bf16-native products (no f32 [E, D] intermediates); q_e / g_msg
+        # are bf16 rows
+        q_e = q_n[se.edge_tgt]
+        g_k_e = _head_expand_like(coef, H, dk, dt) * q_e
+        g_v_e = _head_expand_like(w, H, dk, dt) * g_msg
+    else:
+        q_e = q_n[se.edge_tgt].float()
+        g_k_e = (_head_expand(coef, H, dk) * q_e).to(dt)
+        g_v_e = (_head_expand(w, H, dk) * g_msg.float()).to(dt)
+    gk_src = g_k_e[se.perm_src]
+    gv_src = g_v_e[se.perm_src]
+    g_k_rel, g_v_rel = _seg_sum_grouped_pair(gk_src, gv_src, se, "src",
+                                             seg_pallas)
+    g_k_tab = g_v_tab = None
+    if use_rte:
+        ptab = se.ptab_src
+        if _pallas_ok(gk_src, ptab, seg_pallas):
+            # tab-window kernel: blocks are contiguous in src order, so
+            # (block, Δt) fits a two-block window and the two [E, D] tab
+            # permutes vanish
+            l1, l2 = live_partials_pair(gk_src, gv_src, ptab)
+            g_k_tab = seg_sum_csr(l1, ptab.ptr2)
+            g_v_tab = seg_sum_csr(l2, ptab.ptr2)
+        else:
+            g_k_tab, g_v_tab = _seg_sum_grouped_pair(
+                g_k_e[se.perm_tab], g_v_e[se.perm_tab], se, "tab",
+                seg_pallas)
+        g_k_tab = g_k_tab.to(k_tab.dtype)
+        g_v_tab = g_v_tab.to(v_tab.dtype)
+    return (g_q_n.to(q_n.dtype), g_k_rel.to(k_rel.dtype),
+            g_v_rel.to(v_rel.dtype), g_k_tab, g_v_tab,
+            g_pri_e.to(pri_e.dtype))
+
+
+class _EdgeStage(torch.autograd.Function):
+    """The edge stage with its hand-written backward (the JAX package's
+    ``jax.custom_vjp`` pair ``_edge_fwd`` / ``_edge_bwd``). ``se`` and the
+    static dims are not tensors: they ride on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims):
+        H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax = dims
+        aggr, w, pre, k_e, v_e = _edge_fwd_impl(
+            q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk, use_rte,
+            seg_pallas, softmax_tilemax)
+        if any(ctx.needs_input_grad):
+            # `pre` ([E, H], the prior-less logits) rides along so the
+            # backward never re-gathers q_e for it
+            kv = (k_e, v_e) if save_kv else ()
+            ctx.save_for_backward(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w,
+                                  pre, *kv)
+            ctx.se, ctx.dims = se, dims
+        return aggr
+
+    @staticmethod
+    def backward(ctx, g_aggr):
+        H, dk, use_rte, _, seg_pallas, _ = ctx.dims
+        q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, *kv = ctx.saved_tensors
+        if ctx.se.perm_src is None:
+            raise ValueError("the backward needs a batch sorted with "
+                             "with_backward=True")
+        grads = _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w,
+                          pre, tuple(kv) or None, ctx.se, H, dk, use_rte,
+                          seg_pallas)
+        return (*grads, None, None)
+
+
+def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
+                   use_rte, save_kv=False, seg_pallas=False,
+                   softmax_tilemax=False):
+    """The edge stage: returns ``aggr [N, D]`` (f32). Inputs as in the JAX
+    package's ``hgt_edge_stage``: ``q_n [N, D]`` target queries,
+    ``k_rel/v_rel [B*C, D]`` relation-transformed banks, ``k_tab/v_tab``
+    RTE tables (``None`` without RTE), ``pri_e [E, H]``. Differentiable in
+    the six tensors through :func:`_edge_bwd`; ``save_kv`` keeps the
+    gathered ``k_e``/``v_e`` for it (2 E×D buffers for 2 fewer backward
+    gathers). Under ``torch.no_grad()`` nothing is kept."""
+    dims = (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax)
+    return _EdgeStage.apply(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims)
 
 
 def _tab_select(k_tab, v_tab, tab_sel):
     """Compact-table rows: a row gather. The JAX package selects with a
     one-hot matmul because the gather's autodiff transpose compiled badly on
-    XLA:TPU; the forward values are the same."""
+    XLA:TPU; the forward values are the same, and so is the gradient: the
+    gather's transpose is an ``index_add`` that sums repeated indices (dead
+    compact slots repeat their block's last row), as the one-hot matmul's
+    transpose does."""
     return k_tab[tab_sel], v_tab[tab_sel]
 
 
@@ -279,12 +425,16 @@ def hgt_conv_core_sorted(
     rel_pri, rel_att, rel_msg,
     n_heads: int,
     rte_vec=None,      # [L, Din] or None
+    save_kv: bool = False,
     edge_dtype=None,   # e.g. torch.bfloat16: run the per-edge stage in bf16
     seg_pallas: bool = False,
     softmax_tilemax=False,
 ):
     """Attention + message aggregation over the target-sorted layout.
-    Returns aggr ``[T, C, Dout]`` in ``x.dtype``.
+    Returns aggr ``[T, C, Dout]`` in ``x.dtype``. Everything around the edge
+    stage is plain tensor code that autograd differentiates; the edge stage
+    brings its own backward (:func:`hgt_edge_stage`). ``save_kv`` trades 2
+    E×D saved buffers for 2 fewer backward gathers.
 
     ``edge_dtype=torch.bfloat16`` casts the gathered tables and every
     per-edge ``[E, D]`` tensor to bf16 while logits, softmax and all segment
@@ -330,7 +480,7 @@ def hgt_conv_core_sorted(
 
     aggr = hgt_edge_stage(
         q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
-        use_rte=use_rte, seg_pallas=seg_pallas,
+        use_rte=use_rte, save_kv=save_kv, seg_pallas=seg_pallas,
         softmax_tilemax=bool(softmax_tilemax),
     )
     return aggr.reshape(T, C, Dout).to(x.dtype)

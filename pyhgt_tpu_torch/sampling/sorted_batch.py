@@ -1,9 +1,9 @@
-"""Target-sorted edge view — the host layout of the scatter-free forward.
+"""Target-sorted edge view — the host layout of the scatter-free edge stage.
 
 Counterpart of the numpy path of :mod:`pyhgt_tpu.sampling.sorted_batch`
-(its ``sort_edges(native=False)``), as far as the inference forward reads
-it; every field here is bit-identical to the JAX package's. At batch-build
-time the host precomputes:
+(its ``sort_edges(native=False)``), as far as the flagship's forward and
+its permute-strategy backward read it; every field here is bit-identical to
+the JAX package's. At batch-build time the host precomputes:
 
 - edges permuted so ``edge_tgt`` is globally non-decreasing (padding last);
 - ``gidx`` (index into the per-block relation-transformed node banks) and
@@ -14,10 +14,15 @@ time the host precomputes:
 - the :class:`~pyhgt_tpu_torch.ops.pallas_seg.PallasSegAux` of the target
   grouping that the wide aggregation kernel reads;
 - optionally (``tab_cap``) the per-block occupied-Δt compaction of the RTE
-  table space (``tab_sel``).
+  table space (``tab_sel``);
+- for the backward (``with_backward``): a second permutation ``perm_src``
+  sorting edges by ``gidx`` and a third, ``perm_tab``, by ``tabidx``, each
+  with its tiled aux and kernel aux, so the K/V gather transposes become
+  sorted segment sums; and ``ptab_src``, the window aux that reduces the
+  tab grouping straight off src-ordered rows.
 
-The source and tab groupings, read only by the backward, and the C++
-batch-prep path come with the training slice.
+The src split/multi aux (``src_rank_cap``, ``src_split_cap``) and the C++
+batch-prep path are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,25 +68,44 @@ class SortedEdges:
     # tab compaction: [B*cap] original table row per compact row; None =
     # uncompacted
     tab_sel: Optional[np.ndarray] = None
+    # ---- the backward's aux; all None when built with_backward=False ----
+    perm_src: Optional[np.ndarray] = None      # [E] tgt-order -> gidx-sorted
+    seg_ptr_src: Optional[np.ndarray] = None   # [B*C+1]
+    perm_tab: Optional[np.ndarray] = None      # [E] tgt-order -> tabidx-sorted
+    seg_ptr_tab: Optional[np.ndarray] = None   # [B*Lt+1]
+    tgt_src_order: Optional[np.ndarray] = None  # [E] = edge_tgt[perm_src]
+    tgt_tab_order: Optional[np.ndarray] = None  # [E] = edge_tgt[perm_tab]
+    # tiled-reduction aux (gidx grouping, perm_src order)
+    tl_src: Optional[np.ndarray] = None        # [E]
+    live_idx_src: Optional[np.ndarray] = None  # [Ms]
+    seg_ptr2_src: Optional[np.ndarray] = None  # [G+1]
+    # tiled-reduction aux (tabidx grouping, perm_tab order)
+    tl_tab: Optional[np.ndarray] = None        # [E]
+    live_idx_tab: Optional[np.ndarray] = None  # [Mtab]
+    seg_ptr2_tab: Optional[np.ndarray] = None  # [Gt+1]
+    pseg_src: Optional[PallasSegAux] = None
+    pseg_tab: Optional[PallasSegAux] = None
+    # tab-window aux: reduces the tab grouping on SRC-ordered data (no
+    # [E, D] tab permutes in the backward); None when a tile spans more than
+    # two meta blocks (tiny layouts) — callers fall back to pseg_tab
+    ptab_src: Optional[PallasSegAux] = None
 
     def to(self, device) -> "SortedEdges":
         """Tensors on ``device``: indices int32 (as built: half the bytes of
-        int64 to copy), the mask bool, the one-hot f32, the kernel aux as
-        :meth:`PallasSegAux.to` gives it."""
-        def idx(a):
+        int64 to copy), the mask bool, the one-hot f32, each kernel aux as
+        :meth:`PallasSegAux.to` gives it. Fields that are ``None`` stay
+        ``None``; a view already made of tensors moves with ``Tensor.to``."""
+        def move(a):
+            if a is None or isinstance(a, PallasSegAux):
+                return a if a is None else a.to(device)
+            if isinstance(a, torch.Tensor):
+                return a.to(device)
+            if a.dtype == np.bool_ or a.dtype == np.float32:
+                return torch.as_tensor(a, device=device)
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
-        return SortedEdges(
-            edge_src=idx(self.edge_src), edge_tgt=idx(self.edge_tgt),
-            edge_mask=torch.as_tensor(self.edge_mask, device=device),
-            gidx=idx(self.gidx), tabidx=idx(self.tabidx),
-            rel_onehot=torch.as_tensor(self.rel_onehot, device=device),
-            tl_tgt=idx(self.tl_tgt), live_idx_tgt=idx(self.live_idx_tgt),
-            live_key_tgt=idx(self.live_key_tgt),
-            live_last_tgt=idx(self.live_last_tgt),
-            seg_ptr2_tgt=idx(self.seg_ptr2_tgt),
-            pseg_tgt=self.pseg_tgt.to(device),
-            tab_sel=None if self.tab_sel is None else idx(self.tab_sel),
-        )
+        return SortedEdges(**{
+            f.name: move(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
 
 
 def pallas_seg_aux(key_sorted: np.ndarray, num_segments: int,
@@ -131,6 +155,54 @@ def pallas_seg_aux(key_sorted: np.ndarray, num_segments: int,
                         live_key=live_key_ext, w=W, v=v)
 
 
+def pallas_tab_window_aux(
+    tab_src_order: np.ndarray, num_blocks: int,
+    L: int = RTE_MAX_LEN, K: int = PK, W: int = PW,
+) -> Optional[PallasSegAux]:
+    """Aux that reduces the TAB grouping directly on SRC-ORDERED data.
+
+    In src order (sorted by ``gidx = block*C + src``) the meta block is
+    contiguous, so ``tabidx = block*L + Δt`` has a bounded window per tile:
+    ``loc = (block - tile_block)*W + Δt`` lies in ``[0, W + L)``. Unlike
+    :func:`pallas_seg_aux`, ``loc`` is NOT sorted within a tile, and the
+    output row ``b*W + Δt`` is shared by every tile of meta block ``b``: the
+    aux is marked ``window`` and
+    :func:`~pyhgt_tpu_torch.ops.pallas_seg.live_partials_pair` takes its
+    accumulate-and-add path. The backward then never permutes its [E, D]
+    tensors into tab order.
+
+    Output row ``b*W + Δt`` holds the sum for tab row ``b*L + Δt``;
+    ``ptr2[s] = (s//L)*W + s%L`` lets the plain level-2 combine pick them
+    out. Returns None (callers fall back to the permute path) when a tile
+    spans more than two blocks or a block is empty — only possible when the
+    per-meta edge blocks are smaller than the tile (tiny layouts).
+    """
+    if W < L:
+        raise ValueError(f"window W = {W} < table length {L}")
+    E = tab_src_order.shape[0]
+    if E % K:
+        raise ValueError(f"edge count {E} not a multiple of the {K} tile")
+    tiles = E // K
+    block = (tab_src_order // L).astype(np.int64).reshape(tiles, K)
+    delta = (tab_src_order % L).astype(np.int64).reshape(tiles, K)
+    blk = block[:, 0].astype(np.int32)
+    if (
+        blk[0] != 0
+        or np.any(block.max(axis=1) - blk > 1)
+        or np.any(np.diff(blk) < 0)
+        or np.any(np.diff(blk) > 1)
+    ):
+        return None
+    loc = ((block - blk[:, None]) * W + delta).astype(np.int32)
+    NB = num_blocks
+    tail = np.minimum(blk[-1] + 1 + np.arange(NB - 1), NB - 1)
+    blk_ext = np.concatenate([blk, tail]).astype(np.int32)
+    s = np.arange(num_blocks * L + 1)
+    ptr2 = ((s // L) * W + s % L).astype(np.int32)
+    return PallasSegAux(loc=loc, blk=blk_ext, ptr2=ptr2, w=W, v=L,
+                        window=True)
+
+
 def _compact_tab(tabidx: np.ndarray, B: int, L: int, cap: int):
     """Per-block occupied-Δt compaction of the RTE table space.
 
@@ -141,9 +213,11 @@ def _compact_tab(tabidx: np.ndarray, B: int, L: int, cap: int):
 
     Returns ``(tabidx_c, tab_sel)`` — the remapped edge index and the
     [B*cap] original row per compact row (dead compact slots point at their
-    block's last original slot; no edge maps there) — or ``(None, None)``
-    when a block occupies more than ``cap`` slots (the caller keeps the
-    uncompacted table).
+    block's last original slot; no edge maps there, so the forward never
+    gathers them and the backward adds zeros) — or ``(None, None)`` when a
+    block occupies more than ``cap`` slots (the caller keeps the uncompacted
+    table). The remap is monotone, so an order sorted by ``tabidx`` stays
+    sorted by ``tabidx_c``.
     """
     used = np.zeros(B * L, dtype=bool)
     used[tabidx] = True
@@ -204,6 +278,7 @@ def _tiled_aux(key_sorted: np.ndarray, num_segments: int, K: int = REDUCE_TILE):
 
 def sort_batch(batch: SubgraphBatch, layout: BatchLayout,
                em: Optional[EdgeStaticMeta] = None, **kw) -> SortedEdges:
+    """:func:`sort_edges` of a batch's edge arrays."""
     return sort_edges(batch.edge_src, batch.edge_tgt, batch.edge_dt,
                       batch.edge_mask, layout, em, **kw)
 
@@ -217,9 +292,12 @@ def sort_edges(
     em: Optional[EdgeStaticMeta] = None,
     tgt_rank_cap: int = 0,
     tab_cap: int = 0,
+    with_backward: bool = True,
 ) -> SortedEdges:
-    """Sort a batch's flat edge arrays by target and build the forward aux,
-    with the kernel aux's tile K = ``PK`` and block W = ``PW``.
+    """Sort a batch's flat edge arrays by target and build the aux, with the
+    kernel aux's tile K = ``PK`` and block W = ``PW``.
+    ``with_backward=False`` leaves out the src/tab groupings that only the
+    backward reads (a serving request sorts once and never differentiates).
 
     ``tgt_rank_cap`` builds the target aux with W = V = cap when every tile
     holds at most ``cap`` segments, else the legacy W = K aux. ``tab_cap``
@@ -271,11 +349,29 @@ def sort_edges(
         onehot = np.concatenate([onehot, np.zeros((padn, R), np.float32)])
     safe_tgt = np.where(mask, tgt, N - 1).astype(np.int32)
 
+    if with_backward:
+        # the tab order is taken on the uncompacted index (the compaction
+        # below is monotone and keeps it sorted)
+        perm_src = np.argsort(gidx.astype(np.int64), kind="stable").astype(
+            np.int32)
+        perm_tab = np.argsort(tabidx.astype(np.int64), kind="stable").astype(
+            np.int32)
+
+    # tab compaction: remap the tab grouping to per-block occupied-Δt ranks
+    # BEFORE any tab aux is built; only the segment space (B*L -> B*Lt) and
+    # the keys change
     tab_sel = None
+    Lt = L
     if tab_cap and tab_cap % 8 == 0 and tab_cap < L:
         tabidx_c, tab_sel = _compact_tab(tabidx, B, L, tab_cap)
         if tabidx_c is not None:
             tabidx = tabidx_c
+            Lt = tab_cap
+
+    bwd = {}
+    if with_backward:
+        bwd = _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab,
+                            B=B, C=C, Lt=Lt)
 
     tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = _tiled_aux(key, N)
     key64 = key.astype(np.int64)
@@ -299,4 +395,38 @@ def sort_edges(
         seg_ptr2_tgt=sp2_tgt,
         pseg_tgt=pseg_tgt,
         tab_sel=tab_sel,
+        **bwd,
+    )
+
+
+def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt):
+    """The SortedEdges fields only the backward reads: the src (``gidx``)
+    and tab (``tabidx``, already compacted to ``Lt`` slots per block)
+    groupings' CSR pointers, tiled aux and kernel aux (legacy width: src
+    tiles of degree-1 sources reach K distinct segments, so no rank cap
+    holds there), and the tab-window aux over src-ordered rows. The masked
+    edges' own-block indexing keeps the src-order block boundaries equal to
+    the static per-block capacities, which is what lets the window aux
+    build."""
+    key_src_sorted = gidx.astype(np.int64)[perm_src]
+    key_tab_sorted = tabidx.astype(np.int64)[perm_tab]
+    seg_ptr_src = np.searchsorted(
+        key_src_sorted, np.arange(B * C + 1)).astype(np.int32)
+    seg_ptr_tab = np.searchsorted(
+        key_tab_sorted, np.arange(B * Lt + 1)).astype(np.int32)
+    tl_src, li_src, _, _, sp2_src = _tiled_aux(key_src_sorted, B * C)
+    tl_tab, li_tab, _, _, sp2_tab = _tiled_aux(key_tab_sorted, B * Lt)
+    # the window's only W constraint is W >= Lt (its blocks are META blocks,
+    # which advance by at most one per tile whatever W is)
+    W_tab = ((Lt + 7) // 8) * 8
+    return dict(
+        perm_src=perm_src, seg_ptr_src=seg_ptr_src,
+        perm_tab=perm_tab, seg_ptr_tab=seg_ptr_tab,
+        tgt_src_order=safe_tgt[perm_src], tgt_tab_order=safe_tgt[perm_tab],
+        tl_src=tl_src, live_idx_src=li_src, seg_ptr2_src=sp2_src,
+        tl_tab=tl_tab, live_idx_tab=li_tab, seg_ptr2_tab=sp2_tab,
+        pseg_src=pallas_seg_aux(key_src_sorted, B * C, PK, PW),
+        pseg_tab=pallas_seg_aux(key_tab_sorted, B * Lt, PK, PW),
+        ptab_src=(pallas_tab_window_aux(tabidx[perm_src], B, Lt, PK, W_tab)
+                  if PK >= Lt else None),
     )

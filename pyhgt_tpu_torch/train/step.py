@@ -1,0 +1,76 @@
+"""Losses and the eager train step.
+
+Counterpart of :mod:`pyhgt_tpu.train.step` (``nll_loss``, ``kl_div_loss``,
+``TrainState``, ``make_train_step``): the reference epoch-loop body, forward
+→ loss → backward → clip → optimizer step → scheduler
+(``OAG/train_paper_field.py:240-256``). The JAX package traces it into one
+XLA program over a functional state; here the model and the optimizer hold
+their own state and the step runs eagerly. The gradient-accumulation variant
+(``make_train_step_acc``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+from pyhgt_tpu_torch.train.optim import ScheduledOptimizer
+
+
+def kl_div_loss(log_probs, soft_targets, mask=None):
+    """KLDivLoss(reduction='batchmean') semantics: sum over classes of
+    t * (log t - log p), averaged over batch rows. Rows with all-zero
+    targets contribute 0 (the reference normalizes labels to sum 1).
+    ``mask [rows]`` weighs the rows and replaces the row count."""
+    t = soft_targets
+    safe_log_t = torch.where(t > 0, torch.log(torch.clamp(t, min=1e-30)),
+                             torch.zeros_like(t))
+    per_row = (t * (safe_log_t - log_probs)).sum(dim=-1)
+    if mask is not None:
+        mask = mask.to(per_row.dtype)
+        return (per_row * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return per_row.mean()
+
+
+def nll_loss(log_probs, labels, mask=None):
+    """NLLLoss on log-probabilities; ``mask [rows]`` as in
+    :func:`kl_div_loss`."""
+    per_row = -log_probs.gather(-1, labels.long()[:, None])[:, 0]
+    if mask is not None:
+        mask = mask.to(per_row.dtype)
+        return (per_row * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return per_row.mean()
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run carries: the model (its parameters) and the
+    optimizer (moments, step count, schedule)."""
+
+    model: nn.Module
+    optimizer: ScheduledOptimizer
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+
+def make_train_step(loss_fn: Callable[..., torch.Tensor],
+                    optimizer: ScheduledOptimizer):
+    """Build ``step(*batch) -> loss``: zero the gradients, run
+    ``loss_fn(*batch)`` (a scalar) forward and backward, then
+    ``optimizer.step()`` (clip by global norm, set the schedule's learning
+    rate for this step, update). The returned loss is detached and stays on
+    its device: reading it (``float(loss)``) is what waits for the step."""
+
+    def step(*batch):
+        optimizer.zero_grad()
+        loss = loss_fn(*batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

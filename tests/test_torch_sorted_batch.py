@@ -96,6 +96,94 @@ def test_sort_batch_forward_fields_bit_identical(flagships, rank_cap,
     assert (se.tab_sel is not None) == bool(tab_cap)
 
 
+# every SortedEdges field only the backward reads
+BACKWARD_FIELDS = (
+    "perm_src", "seg_ptr_src", "perm_tab", "seg_ptr_tab", "tgt_src_order",
+    "tgt_tab_order", "tl_src", "live_idx_src", "seg_ptr2_src", "tl_tab",
+    "live_idx_tab", "seg_ptr2_tab",
+)
+BACKWARD_AUX = ("pseg_src", "pseg_tab", "ptab_src")
+
+
+def _same_backward_aux(se, jse):
+    for f in BACKWARD_FIELDS:
+        _same(getattr(se, f), getattr(jse, f), f)
+    for name in BACKWARD_AUX:
+        a, ja = getattr(se, name), getattr(jse, name)
+        assert (a is None) == (ja is None), name
+        if a is None:
+            continue
+        for f in ("loc", "blk", "ptr2", "live_key"):
+            _same(getattr(a, f), getattr(ja, f), f"{name}.{f}")
+        assert (a.w, a.v) == (ja.w, ja.v), name
+        assert a.window == (name == "ptab_src")
+
+
+@pytest.mark.parametrize("rank_cap,tab_cap,fill", SORT_CASES)
+def test_sort_batch_backward_fields_bit_identical(flagships, rank_cap,
+                                                  tab_cap, fill):
+    """The tiny preset: a tile spans more than two of its small blocks, so
+    neither package builds the tab-window aux."""
+    jf, tf = flagships
+    batch, _ = synth_flagship_batch(tf, 1, edge_fill=fill)
+    se = sort_batch(batch, tf.layout, tf.em, tgt_rank_cap=rank_cap,
+                    tab_cap=tab_cap)
+    jse = jax_sort(batch, jf.layout, jf.em, native=False,
+                   tgt_rank_cap=rank_cap, tab_cap=tab_cap)
+    _same_backward_aux(se, jse)
+    assert se.ptab_src is None
+    # a serving sort leaves the backward's aux out and nothing else
+    fwd = sort_batch(batch, tf.layout, tf.em, tgt_rank_cap=rank_cap,
+                     tab_cap=tab_cap, with_backward=False)
+    for f in BACKWARD_FIELDS + BACKWARD_AUX:
+        assert getattr(fwd, f) is None, f
+    for f in FORWARD_FIELDS:
+        _same(getattr(fwd, f), getattr(se, f), f)
+
+
+def two_type_layouts():
+    """(JAX layout, port layout) whose blocks all exceed the kernel tile
+    (node cap 512, edge cap 1024), so the tab-window aux builds."""
+    from pyhgt_tpu.graph import schema as jschema
+    from pyhgt_tpu.sampling.batch import BatchLayout as JaxLayout
+    from pyhgt_tpu_torch.graph import schema as tschema
+    from pyhgt_tpu_torch.sampling.batch import BatchLayout
+
+    def build(mod, layout_cls):
+        schema = mod.GraphSchema(
+            node_types=("paper", "author"),
+            metas=(mod.MetaRelation("paper", "author", "AP_write"),
+                   mod.MetaRelation("author", "paper", "rev_AP_write"),
+                   mod.MetaRelation("paper", "paper", "PP_cite")))
+        return layout_cls(schema=schema, pad=mod.PadSpec(
+            node_cap=512, default_edge_cap=1024))
+    return build(jschema, JaxLayout), build(tschema, BatchLayout)
+
+
+@pytest.mark.parametrize("tab_cap", [0, 64, 8],
+                         ids=["uncompacted", "tab-cap-64", "tab-cap-violated"])
+def test_tab_window_aux_bit_identical(tab_cap):
+    from pyhgt_tpu_torch.utils.synth import synth_batch
+
+    jl, tl = two_type_layouts()
+    batch = synth_batch(tl, np.random.default_rng(9), din=16, node_fill=0.9,
+                        edge_fill=0.9)
+    # dt is uniform over the 240 slots: draw it from 40 so that cap 64 holds
+    batch.edge_dt[:] = 100 + batch.edge_dt % 40
+    se = sort_batch(batch, tl, tab_cap=tab_cap)
+    jse = jax_sort(batch, jl, native=False, tab_cap=tab_cap)
+    for f in FORWARD_FIELDS:
+        _same(getattr(se, f), getattr(jse, f), f)
+    _same_backward_aux(se, jse)
+    compact = tab_cap == 64
+    assert (se.tab_sel is not None) == compact
+    width = 64 if compact else 240
+    assert se.ptab_src is not None
+    assert se.ptab_src.w == se.ptab_src.v == width
+    assert se.ptab_src.num_blocks == len(tl.blocks)
+    assert se.seg_ptr_tab.shape[0] == len(tl.blocks) * width + 1
+
+
 def test_sorted_edges_to_device_dtypes(flagships):
     import torch
 
@@ -106,3 +194,9 @@ def test_sorted_edges_to_device_dtypes(flagships):
     assert d.rel_onehot.dtype == torch.float32
     assert d.pseg_tgt.loc.dtype == d.pseg_tgt.blk.dtype == torch.int32
     assert d.pseg_tgt.ptr2.dtype == torch.int64
+    assert d.perm_src.dtype == d.tl_tab.dtype == torch.int32
+    assert d.pseg_src.rows_checked and d.pseg_tab.rows_checked
+    # a view already on the device moves as it is
+    again = d.to("cpu")
+    assert again.pseg_src.rows_checked
+    assert torch.equal(again.perm_tab, d.perm_tab)
