@@ -6,15 +6,19 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
 ``bench`` preset (ogbn-mag reproduction widths: 4 HGT layers, n_hid 512,
 8 heads, RTE, bf16 edge stage) and checks every hand-written kernel on them:
 
-1. build the CUDA kernels from ``pyhgt_tpu_torch/csrc`` (nvcc, sm_90a), one
-   compiler process per source, all started together;
+1. build the six CUDA kernels from ``pyhgt_tpu_torch/csrc`` (nvcc, sm_90a),
+   one compiler process per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it (aux of a real sorted bench batch):
-   ``live_partials`` on the capped and legacy target aux, and
+   shapes the main paths give it (aux of a real sorted bench batch), each in
+   bf16 and f32: ``live_partials`` on the capped and legacy target aux;
    ``live_partials_pair`` on the src runs aux, the compacted and the
-   uncompacted tab-window aux and the tab runs aux, each in bf16 and f32;
+   uncompacted tab-window aux, the tab runs aux and a singleton-split aux
+   with dead rows; ``live_partials_slab`` on the src runs aux and the
+   tab-window aux; ``live_partials_weighted`` on the capped and legacy
+   target aux and a singleton-split aux; ``head_sum_product``; ``segment_softmax_partials`` on the
+   legacy target aux with the batch's masked rows at -1e30;
 3. time each kernel, its plain version and the PyTorch calls that compute
-   the same function (``index_add_``), beside the card's bound for the work;
+   the same function, beside the card's bound for the work;
 4. serve: answer 3 requests (synthetic batch -> host sort -> forward ->
    argmax over the 128 seeds, as ``OgbnPredictor.predict`` does per chunk),
    counting kernel launches;
@@ -25,13 +29,25 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
    NLL, backward, global-norm clip, AdamW), counting kernel launches and
    checking losses, gradients and that the parameters moved;
 7. compare one loss and every parameter's gradient (dropout off) from the
-   card with the CPU's plain path.
+   card with the CPU's plain path;
+8. the same trainer under three more configurations, launch counts
+   asserted: (A) ``edge_bwd="slab"``, (B) ``WEIGHTED_KERNEL`` on, (C)
+   ``seg_rank_cap=0, softmax_pallas=True``, each followed by one served
+   request under the same configuration with its launches asserted; for
+   each, and for ``edge_bwd`` recompute and src_direct and
+   ``softmax_tilemax="auto"`` (three steps each as well), loss and gradients
+   on the card against the main path's on the card, and for (A)-(C) against
+   the CPU's plain path;
+9. one standalone call of ``head_sum_product`` (no path of the package
+   calls it) on a layer's gathered rows, against the edge stage's own
+   ``_head_sum_prod``.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``. ``--profile`` also prints
-the top CUDA ops of one forward and of one train step by device time
-(torch.profiler).
+the top CUDA ops of one forward, of one train step, of one step under
+``edge_bwd="slab"`` and of one forward under ``softmax_pallas`` by device
+time (torch.profiler).
 """
 
 from __future__ import annotations
@@ -46,12 +62,15 @@ import torch
 
 from pyhgt_tpu_torch.bench import make_flagship_trainer
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
-from pyhgt_tpu_torch.ops import cuda_build
+from pyhgt_tpu_torch.ops import cuda_build, sorted_hgt
+from pyhgt_tpu_torch.ops import pallas_seg as ps
 from pyhgt_tpu_torch.ops.pallas_seg import (
     PallasSegAux, out_rows, live_partials, live_partials_pair,
     live_partials_pair_plain, live_partials_plain,
 )
-from pyhgt_tpu_torch.sampling.sorted_batch import sort_batch
+from pyhgt_tpu_torch.sampling.sorted_batch import (
+    pallas_seg_aux_split, sort_batch,
+)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -99,22 +118,42 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+COUNTERS = (ps.live_partials, ps.live_partials_pair, ps.live_partials_slab,
+            ps.live_partials_weighted, ps.segment_softmax_partials,
+            ps.head_sum_product)
+NO_LAUNCH = {"live_partials": 0, "pair_runs": 0, "pair_window": 0,
+             "slab_runs": 0, "slab_window": 0, "weighted": 0, "softmax": 0,
+             "head_sum": 0}
+
+
 def reset_counts():
-    live_partials.launches = 0
-    live_partials_pair.launches = 0
-    live_partials_pair.window_launches = 0
+    for fn in COUNTERS:
+        fn.launches = 0
+    ps.live_partials_pair.window_launches = 0
+    ps.live_partials_slab.window_launches = 0
 
 
 def read_counts():
-    pair, window = (live_partials_pair.launches,
-                    live_partials_pair.window_launches)
-    return {"live_partials": live_partials.launches,
-            "pair_runs": pair - window, "pair_window": window}
+    pair, pair_w = (ps.live_partials_pair.launches,
+                    ps.live_partials_pair.window_launches)
+    slab, slab_w = (ps.live_partials_slab.launches,
+                    ps.live_partials_slab.window_launches)
+    return {"live_partials": ps.live_partials.launches,
+            "pair_runs": pair - pair_w, "pair_window": pair_w,
+            "slab_runs": slab - slab_w, "slab_window": slab_w,
+            "weighted": ps.live_partials_weighted.launches,
+            "softmax": ps.segment_softmax_partials.launches,
+            "head_sum": ps.head_sum_product.launches}
+
+
+def scaled(per_unit, n):
+    """Expected counts: ``per_unit`` (kernels not named: 0) times ``n``."""
+    return {k: per_unit.get(k, 0) * n for k in NO_LAUNCH}
 
 
 def phase_build():
     t0 = time.perf_counter()
-    paths = cuda_build.build(["live_partials", "live_partials_pair"])
+    paths = cuda_build.build(ps.KERNEL_SOURCES)
     log(f"[build] {len(paths)} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.BUILD_LOG.items():
@@ -157,6 +196,16 @@ def check_close(got, want, abs_sum, what):
     return err
 
 
+def record(name, source, line, err, ms, plain_ms, bound, library_ms,
+           bound_by="bytes", **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"pyhgt_tpu_torch/csrc/{source}.cu",
+            "replaces": f"pyhgt_tpu/ops/pallas_seg.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms, **extra}
+
+
 def phase_kernel(fl, dev, batch):
     """live_partials against its plain version at the main path's shapes,
     for the capped (bench) and legacy aux, bf16 and f32; timed at the main
@@ -175,7 +224,7 @@ def phase_kernel(fl, dev, batch):
     E = auxes["capped"].loc.size
     base = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
     max_err = 0.0
-    record = None
+    timed = None
     for aux_name, aux in auxes.items():
         gaux = aux.to(dev)
         for dtype in (torch.bfloat16, torch.float32):
@@ -188,9 +237,9 @@ def phase_kernel(fl, dev, batch):
                 got, want, abs_sum, f"live_partials {aux_name} W={aux.w} "
                 f"V={aux.v} {str(dtype)[6:]} {tuple(x.shape)}"))
             if aux_name == "capped" and dtype == torch.bfloat16:
-                record = (x, gaux)
+                timed = (x, gaux)
 
-    x, gaux = record
+    x, gaux = timed
     rows = out_rows(gaux)
     x32 = x.float()
     zeros = torch.zeros(gaux.num_blocks * gaux.w, x.shape[1], device=dev)
@@ -202,22 +251,37 @@ def phase_kernel(fl, dev, batch):
         f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} "
         f"ms, index_add (f32 source) {library_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
-    return {
-        "name": "live_partials", "route": "cuda",
-        "source": "pyhgt_tpu_torch/csrc/live_partials.cu",
-        "replaces": "pyhgt_tpu/ops/pallas_seg.py:759",
-        "launches": None, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": library_ms,
-    }
+    return record("live_partials", "live_partials", 759, max_err, ms,
+                  plain_ms, bound, library_ms)
+
+
+def split_aux(se):
+    """The singleton-split aux of the bench batch's src grouping (degree-1
+    sources become dead rows, loc = -1), at the smallest rank cap of 64, 128,
+    384 that its tiles' multi-edge segments fit."""
+    key = se.gidx.astype(np.int64)[se.perm_src]
+    E, G = key.shape[0], se.seg_ptr_src.shape[0] - 1
+    for cap in (64, 128, 384):
+        split = pallas_seg_aux_split(key, G, K=se.pseg_src.loc.shape[1],
+                                     W=cap, v=cap, single_cap=E)
+        if split is not None:
+            aux = split[0]
+            dead = int((aux.loc < 0).sum())
+            log(f"[kernel] singleton-split src aux: W = V = {cap}, {dead} "
+                f"dead rows of {E}")
+            if not (aux.dead_rows and dead):
+                raise AssertionError("the split aux carries no dead row")
+            return aux
+    raise AssertionError("no singleton-split aux built for the bench batch")
 
 
 def phase_pair_kernel(fl, dev, batch):
     """live_partials_pair against its plain version with the aux of a real
     sorted bench batch, bf16 and f32: the src runs aux (W = 384), the
     compacted tab-window aux (W = V = 64), the uncompacted one (no tab_cap:
-    W = V = 240) and the tab runs aux. Timed in bf16 in the two cases the
-    train step runs: src runs and compacted window."""
+    W = V = 240), the tab runs aux and the src singleton-split aux (dead
+    rows). Timed in bf16 in the two cases the train step runs: src runs and
+    compacted window."""
     se = fl.sort(batch)
     se_unc = sort_batch(batch, fl.layout, fl.em,
                         tgt_rank_cap=fl.cfg.seg_rank_cap)
@@ -226,6 +290,7 @@ def phase_pair_kernel(fl, dev, batch):
         "tab-window-uncompacted": se_unc.ptab_src, "tab-runs": se.pseg_tab,
     }
     shapes = {k: (a.w, a.v, a.window) for k, a in auxes.items()}
+    auxes["src-singleton-split"] = split_aux(se)
     want_shapes = {
         "src-runs": (384, 0, False),
         "tab-window": (fl.cfg.tab_cap, fl.cfg.tab_cap, True),
@@ -273,16 +338,228 @@ def phase_pair_kernel(fl, dev, batch):
             f"{plain_ms:.4f} ms, two index_add (f32 sources) "
             f"{library_ms:.4f} ms, bound {bound:.4f} ms "
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
-        records.append({
-            "name": f"live_partials_pair ({kind} aux: {name})",
-            "route": "cuda",
-            "source": "pyhgt_tpu_torch/csrc/live_partials_pair.cu",
-            "replaces": "pyhgt_tpu/ops/pallas_seg.py:275",
-            "launches": None, "max_abs_err": errs[kind], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms, "kind": kind,
-        })
+        records.append(record(
+            f"live_partials_pair ({kind} aux: {name})", "live_partials_pair",
+            275, errs[kind], ms, plain_ms, bound, library_ms, kind=kind))
     return records
+
+
+def time_line(what, ms, nbytes, plain_ms, library, library_ms, bound):
+    log(f"[time] {what}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
+        f"plain {plain_ms:.4f} ms, {library} {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+
+
+def phase_slab_kernel(fl, dev, batch):
+    """live_partials_slab against its plain version on the two aux the slab
+    backward hands it (src runs, W = 384; compacted tab window, W = V = 64),
+    bf16 and f32 [E, 2 x 512] slabs; timed in bf16 on both."""
+    se = fl.sort(batch)
+    D = fl.cfg.n_hid
+    gen = torch.Generator(device=dev).manual_seed(2)
+    base = torch.randn(se.pseg_src.loc.size, 2 * D, generator=gen, device=dev)
+    records = []
+    for kind, name, aux in (("runs", "src-runs", se.pseg_src),
+                            ("window", "tab-window", se.ptab_src)):
+        gaux = aux.to(dev)
+        err = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = base.to(dtype)
+            got = ps.live_partials_slab(x, gaux)
+            want = ps.live_partials_slab_plain(x, gaux)
+            abs_sum = ps.live_partials_slab_plain(x.abs(), gaux)
+            torch.cuda.synchronize()
+            for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
+                err = max(err, check_close(
+                    g, w, a, f"live_partials_slab[{i}] {name} W={aux.w} "
+                    f"V={aux.v} {str(dtype)[6:]} {tuple(x.shape)}"))
+        x = base.to(torch.bfloat16)
+        rows = out_rows(gaux)
+        f1, f2 = x[:, :D].float(), x[:, D:].float()
+        zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
+        ms = cuda_ms(lambda: ps.live_partials_slab(x, gaux))
+        plain_ms = cuda_ms(lambda: ps.live_partials_slab_plain(x, gaux))
+        library_ms = cuda_ms(lambda: (torch.index_add(zeros, 0, rows, f1),
+                                      torch.index_add(zeros, 0, rows, f2)))
+        bound, nbytes = bound_ms(x[:, :D], gaux, n_tensors=2)
+        time_line(f"live_partials_slab {name} bf16 {tuple(x.shape)} "
+                  f"W={gaux.w} V={gaux.v} -> 2 x {tuple(zeros.shape)}", ms,
+                  nbytes, plain_ms, "two index_add (f32 halves)", library_ms,
+                  bound)
+        records.append(record(
+            f"live_partials_slab ({kind} aux: {name})", "live_partials_slab",
+            739, err, ms, plain_ms, bound, library_ms, counter=f"slab_{kind}",
+            launches_config='edge_bwd="slab"'))
+    return records
+
+
+def phase_weighted_kernel(fl, dev, batch):
+    """live_partials_weighted against its plain version on the capped and
+    the legacy target aux and on the src singleton-split aux (dead rows: the
+    walk's other instance), bf16 and f32 values; timed at the bench preset's
+    configuration (bf16 values, capped aux)."""
+    cfg = fl.cfg
+    H, dk = cfg.n_heads, cfg.n_hid // cfg.n_heads
+    auxes = {"capped": fl.sort(batch, with_backward=False).pseg_tgt,
+             "legacy": sort_batch(batch, fl.layout, fl.em,
+                                  with_backward=False).pseg_tgt,
+             "src-singleton-split": split_aux(fl.sort(batch))}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    E = auxes["capped"].loc.size
+    w = torch.rand(E, H, generator=gen, device=dev)
+    base = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
+    err, timed = 0.0, None
+    for aux_name, aux in auxes.items():
+        gaux = aux.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            v = base.to(dtype)
+            got = ps.live_partials_weighted(w, v, dk, gaux)
+            want = ps.live_partials_weighted_plain(w, v, dk, gaux)
+            abs_sum = ps.live_partials_weighted_plain(w, v.abs(), dk, gaux)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                got, want, abs_sum, f"live_partials_weighted {aux_name} "
+                f"W={aux.w} V={aux.v} {str(dtype)[6:]} w {tuple(w.shape)} "
+                f"v {tuple(v.shape)}"))
+            if aux_name == "capped" and dtype == torch.bfloat16:
+                timed = (v, gaux)
+    v, gaux = timed
+    rows = out_rows(gaux)
+    msg32 = w.repeat_interleave(dk, dim=1) * v.float()
+    zeros = torch.zeros(gaux.num_blocks * gaux.w, v.shape[1], device=dev)
+    ms = cuda_ms(lambda: ps.live_partials_weighted(w, v, dk, gaux))
+    plain_ms = cuda_ms(lambda: ps.live_partials_weighted_plain(w, v, dk, gaux))
+    # no single PyTorch call forms the product and sums it: the yardstick is
+    # the sum alone, index_add of the message tensor multiplied ahead
+    library_ms = cuda_ms(lambda: torch.index_add(zeros, 0, rows, msg32))
+    nbytes = partials_bytes(v, gaux) + w.numel() * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, 2 * v.numel() / F32_FLOPS) * 1e3
+    time_line(f"live_partials_weighted bf16 v {tuple(v.shape)} w "
+              f"{tuple(w.shape)} W=V={gaux.w}", ms, nbytes, plain_ms,
+              "index_add of the ready f32 product", library_ms, bound)
+    return record("live_partials_weighted", "live_partials_weighted", 622,
+                  err, ms, plain_ms, bound, library_ms, counter="weighted",
+                  launches_config="sorted_hgt.WEIGHTED_KERNEL = True")
+
+
+def phase_head_sum_kernel(fl, dev):
+    """head_sum_product against its plain version at the edge stage's shapes
+    ([E, 512], 8 heads of 64 lanes), bf16 and f32; timed in bf16."""
+    cfg = fl.cfg
+    dk = cfg.n_hid // cfg.n_heads
+    E = -(-fl.layout.num_edges // ps.PK) * ps.PK
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a32 = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
+    b32 = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = a32.to(dtype), b32.to(dtype)
+        got = ps.head_sum_product(a, b, dk)
+        want = ps.head_sum_product_plain(a, b, dk)
+        abs_sum = ps.head_sum_product_plain(a.abs(), b.abs(), dk)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            got, want, abs_sum, f"head_sum_product {str(dtype)[6:]} 2 x "
+            f"{tuple(a.shape)} dk={dk}"))
+    a, b = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    H = cfg.n_heads
+    ms = cuda_ms(lambda: ps.head_sum_product(a, b, dk))
+    plain_ms = cuda_ms(lambda: ps.head_sum_product_plain(a, b, dk))
+    library_ms = cuda_ms(lambda: (a.float() * b).view(E, H, dk).sum(-1))
+    nbytes = 2 * a.numel() * a.element_size() + E * H * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, 2 * a.numel() / F32_FLOPS) * 1e3
+    time_line(f"head_sum_product bf16 2 x {tuple(a.shape)} -> ({E}, {H})", ms,
+              nbytes, plain_ms, "(a.float() * b).view(E, H, dk).sum(-1)",
+              library_ms, bound)
+    return record("head_sum_product", "head_sum_product", 515, err, ms,
+                  plain_ms, bound, library_ms, counter="head_sum",
+                  launches_config="one standalone call: no path of the "
+                  "package calls this function")
+
+
+def phase_softmax_kernel(fl, dev, batch):
+    """segment_softmax_partials against its plain version on the legacy
+    target aux of the bench batch, logits [E, 8] f32 with the batch's masked
+    rows at -1e30. The emitted max (the bf16 rounding of each slice's max)
+    must be bit-equal; the sums add the same f32 exps in another order, with
+    expf against torch.exp: 1e-5 relative."""
+    se = sort_batch(batch, fl.layout, fl.em, with_backward=False)
+    aux = se.pseg_tgt
+    if aux.v or aux.w != ps.PK or aux.live_key is None:
+        raise AssertionError("expected the legacy target aux")
+    gaux = aux.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H = fl.cfg.n_heads
+    att = torch.randn(aux.loc.size, H, generator=gen, device=dev) * 4
+    mask = torch.as_tensor(se.edge_mask, device=dev)
+    att = torch.where(mask[:, None], att, torch.full_like(att, -1e30))
+    m, s = ps.segment_softmax_partials(att, gaux)
+    pm, psum = ps.segment_softmax_partials_plain(att, gaux)
+    torch.cuda.synchronize()
+    m_equal = bool(torch.equal(m, pm))
+    diff = (s - psum).abs()
+    err = diff.max().item()
+    ok = m_equal and bool((diff <= 1e-5 * psum.abs()).all())
+    log(f"[kernel] segment_softmax_partials legacy W={aux.w} att "
+        f"{tuple(att.shape)} ({int((~mask).sum())} masked rows) -> 2 x "
+        f"{tuple(m.shape)}: max bit-equal {m_equal}, sums max_abs_err "
+        f"{err:.3e} (tol 1e-5 x |value|, max |value| "
+        f"{psum.max().item():.1f}) {'ok' if ok else 'FAIL'}")
+    if not ok or not bool(torch.isfinite(m).all()):
+        raise AssertionError("segment_softmax_partials disagrees with its "
+                             "plain version")
+    rows = out_rows(gaux)
+    idx = rows[:, None].expand(-1, H)
+    ex = torch.exp(torch.clamp(att - pm[rows], max=80.0))
+    zeros = torch.zeros_like(pm)
+    ms = cuda_ms(lambda: ps.segment_softmax_partials(att, gaux))
+    plain_ms = cuda_ms(lambda: ps.segment_softmax_partials_plain(att, gaux))
+    # no single PyTorch call: the yardstick is the two reductions alone, a
+    # scatter-max of the logits and an index_add of exps computed ahead
+    library_ms = cuda_ms(lambda: (
+        torch.scatter_reduce(zeros, 0, idx, att, "amax", include_self=False),
+        torch.index_add(zeros, 0, rows, ex)))
+    nbytes = (att.numel() * 4 + aux.loc.size * 4 + aux.loc.shape[0] * 4
+              + 2 * m.numel() * 4)
+    # per logit: a max, a subtraction, a min, an exp, an addition
+    bound = max(nbytes / HBM_BYTES_PER_S, 5 * att.numel() / F32_FLOPS) * 1e3
+    time_line(f"segment_softmax_partials att {tuple(att.shape)} W={aux.w}",
+              ms, nbytes, plain_ms, "scatter_reduce(amax) + index_add of "
+              "ready exps", library_ms, bound)
+    return record("segment_softmax_partials", "segment_softmax_partials",
+                  423, err, ms, plain_ms, bound, library_ms,
+                  counter="softmax",
+                  launches_config="seg_rank_cap=0, softmax_pallas=True")
+
+
+def phase_head_sum_path(fl, dev, batch):
+    """The one way head_sum_product is reached: a caller's own call. One
+    layer's attention logits from gathered bf16 rows, against the edge
+    stage's ``_head_sum_prod`` on the same rows."""
+    cfg = fl.cfg
+    H, dk = cfg.n_heads, cfg.n_hid // cfg.n_heads
+    se = fl.sort(batch, with_backward=False).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    N = fl.layout.num_types * cfg.node_cap
+    G = len(fl.layout.blocks) * cfg.node_cap
+    q_n = torch.randn(N, cfg.n_hid, generator=gen, device=dev).bfloat16()
+    k_rel = torch.randn(G, cfg.n_hid, generator=gen, device=dev).bfloat16()
+    q_e, k_e = q_n[se.edge_tgt], k_rel[se.gidx]
+    reset_counts()
+    pre = ps.head_sum_product(q_e, k_e, dk)
+    counts = read_counts()
+    want = sorted_hgt._head_sum_prod(q_e, k_e, H, dk)
+    torch.cuda.synchronize()
+    err = (pre - want).abs().max().item()
+    log(f"[headsum] head_sum_product on gathered rows {tuple(q_e.shape)}: "
+        f"max |kernel - _head_sum_prod| {err:.3e} (tol {KERNEL_TOL:g} + "
+        f"{KERNEL_TOL:g} x |value|), launches {counts['head_sum']}")
+    if not bool(((pre - want).abs() <= KERNEL_TOL
+                 + KERNEL_TOL * want.abs()).all()):
+        raise AssertionError("head_sum_product disagrees with _head_sum_prod")
+    if counts != scaled({"head_sum": 1}, 1):
+        raise AssertionError(f"launches {counts}")
+    return counts
 
 
 def answer(fl, seed):
@@ -328,10 +605,9 @@ def phase_requests(fl, n_edges):
         f"{n_edges / (fwd / 1e3):.6g} edges/s (forward), "
         f"{n_edges / ((srt + fwd) / 1e3):.6g} edges/s (sort + forward); "
         f"these count each edge once per forward")
-    expected = {"live_partials": cfg.n_layers * N_REQUESTS, "pair_runs": 0,
-                "pair_window": 0}
+    expected = scaled({"live_partials": cfg.n_layers}, N_REQUESTS)
     log(f"[serve] kernel launches {counts} (expected live_partials = "
-        f"n_layers x requests, no pair launch: {expected})")
+        f"n_layers x requests and no other launch)")
     if counts != expected:
         raise AssertionError("the serving path did not run the kernel once "
                              "per layer")
@@ -351,10 +627,50 @@ def phase_cpu(logp_gpu):
         raise AssertionError("GPU and CPU forwards disagree")
 
 
-def phase_train(dev, batch, labels, n_edges):
-    """The trainer's main path: a fresh seeded flagship, the bench's
-    optimizer, one warm-up step and N_STEPS timed steps on one batch."""
-    fl = build_flagship("bench", device=dev, seed=0)
+# launches per train step (``step``) and per serving forward (``serve``) of
+# the main path and of configurations (A)-(C), per layer (kernels not
+# named: none)
+MAIN_STEP = {"live_partials": 2, "pair_runs": 1, "pair_window": 1}
+MAIN_SERVE = {"live_partials": 1}
+CONFIGS = {
+    # (A) the lane-concatenated backward: one [E, 2D] permute, the slab
+    # kernel on the src runs aux and on the tab-window aux, no pair
+    "A": dict(overrides=dict(edge_bwd="slab"), weighted=False,
+              step={"live_partials": 2, "slab_runs": 1, "slab_window": 1},
+              # the slab kernel belongs to the backward: a forward runs none
+              serve=MAIN_SERVE),
+    # (B) the weighted kernel for the forward aggregation and g_q_n
+    "B": dict(overrides={}, weighted=True,
+              step={"weighted": 2, "pair_runs": 1, "pair_window": 1},
+              serve={"weighted": 1}),
+    # (C) the softmax kernel; it needs the legacy target aux, so no rank cap
+    "C": dict(overrides=dict(seg_rank_cap=0, softmax_pallas=True),
+              weighted=False, step=dict(MAIN_STEP, softmax=1),
+              serve=dict(MAIN_SERVE, softmax=1)),
+}
+
+
+class weighted_kernel:
+    """``sorted_hgt.WEIGHTED_KERNEL`` set for a block, restored after."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        self.old = sorted_hgt.WEIGHTED_KERNEL
+        sorted_hgt.WEIGHTED_KERNEL = self.on
+
+    def __exit__(self, *exc):
+        sorted_hgt.WEIGHTED_KERNEL = self.old
+
+
+def phase_train(dev, batch, labels, n_edges, tag="train", overrides=None,
+                weighted=False, step_counts=MAIN_STEP):
+    """The trainer's path under one configuration: a fresh seeded flagship,
+    the bench's optimizer, one warm-up step and N_STEPS timed steps on one
+    batch, the launches of every kernel counted from 0 after the warm-up and
+    held to ``step_counts`` (per layer and step)."""
+    fl = build_flagship("bench", device=dev, seed=0, **(overrides or {}))
     cfg = fl.cfg
     t0 = time.perf_counter()
     se = fl.sort(batch)
@@ -362,20 +678,22 @@ def phase_train(dev, batch, labels, n_edges):
     args = fl.to_device(batch, se, labels)
     state, step = make_flagship_trainer(fl)
     before = {n: p.detach().clone() for n, p in fl.model.named_parameters()}
-    warm = float(step(*args))                # warm-up (cuBLAS, allocator)
-    torch.cuda.synchronize()
-    reset_counts()
-    losses, times = [], []
-    for _ in range(N_STEPS):
-        t0 = time.perf_counter()
-        losses.append(float(step(*args)))    # reading the loss waits
+    with weighted_kernel(weighted):
+        warm = float(step(*args))            # warm-up (cuBLAS, allocator)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    counts = read_counts()
-    log(f"[train] host sort with the backward's aux {sort_ms:.1f} ms (once); "
-        f"warm-up loss {warm:.4f}")
+        reset_counts()
+        losses, times = [], []
+        for _ in range(N_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(*args)))    # reading the loss waits
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+    log(f"[{tag}] configuration {overrides or {}}"
+        f"{' WEIGHTED_KERNEL' if weighted else ''}: host sort with the "
+        f"backward's aux {sort_ms:.1f} ms (once); warm-up loss {warm:.4f}")
     for i, (loss, ms) in enumerate(zip(losses, times)):
-        log(f"[train] step {i}: loss {loss:.4f}, {ms:.2f} ms")
+        log(f"[{tag}] step {i}: loss {loss:.4f}, {ms:.2f} ms")
     if not all(np.isfinite(losses + [warm])):
         raise AssertionError("a training loss is not finite")
     bad = [n for n, p in fl.model.named_parameters()
@@ -389,54 +707,127 @@ def phase_train(dev, batch, labels, n_edges):
     if state.step != N_STEPS + 1:
         raise AssertionError(f"optimizer count {state.step}")
     ms = float(np.mean(times))
-    log(f"[train] {N_STEPS} steps: {ms:.2f} ms/step (forward with dropout + "
+    log(f"[{tag}] {N_STEPS} steps: {ms:.2f} ms/step (forward with dropout + "
         f"backward + clip + AdamW, batch resident on the card); {n_edges} "
         f"valid edges x {cfg.n_layers} layers / step time -> "
         f"{n_edges * cfg.n_layers / (ms / 1e3):.6g} train edges/s (counts "
         f"each edge once per layer; the [serve] edges/s counts each edge "
         f"once per forward)")
-    per_step = 2 * cfg.n_layers
-    expected = {"live_partials": per_step * N_STEPS,
-                "pair_runs": cfg.n_layers * N_STEPS,
-                "pair_window": cfg.n_layers * N_STEPS}
-    log(f"[train] kernel launches {counts}: live_partials "
-        f"{counts['live_partials'] / N_STEPS:g}/step, live_partials_pair "
-        f"{(counts['pair_runs'] + counts['pair_window']) / N_STEPS:g}/step "
-        f"(expected 2 x n_layers = {per_step} each)")
+    expected = scaled(step_counts, cfg.n_layers * N_STEPS)
+    per_step = {k: v / N_STEPS for k, v in counts.items() if v}
+    log(f"[{tag}] kernel launches per step {per_step} (expected per layer "
+        f"{step_counts}, x {cfg.n_layers} layers)")
     if counts != expected:
-        raise AssertionError(f"the train step's launches {counts} != "
+        raise AssertionError(f"[{tag}] the train step's launches {counts} != "
                              f"{expected}")
     return counts, ms
 
 
-def loss_and_grads(dev, batch, labels):
-    fl = build_flagship("bench", device=dev, seed=0, dropout=0.0)
-    loss = fl.loss(batch, fl.sort(batch), labels)
-    loss.backward()
+def phase_serve_config(dev, name):
+    """One served request under configuration (A), (B) or (C), every
+    kernel's launches counted from 0 just before it and held to the
+    configuration's ``serve`` counts (per layer)."""
+    cfg = CONFIGS[name]
+    fl = build_flagship("bench", device=dev, seed=0, **cfg["overrides"])
+    with weighted_kernel(cfg["weighted"]):
+        answer(fl, seed=100)
+        torch.cuda.synchronize()
+        reset_counts()
+        logp, _, t = answer(fl, seed=0)
+        counts = read_counts()
+    tag = f"serve-{name}"
+    finite = bool(torch.isfinite(logp).all())
+    lse_err = torch.logsumexp(logp.float(), dim=-1).abs().max().item()
+    log(f"[{tag}] one request under {cfg['overrides'] or {}}"
+        f"{' WEIGHTED_KERNEL' if cfg['weighted'] else ''}: log-probs "
+        f"{tuple(logp.shape)} finite={finite} max|logsumexp| {lse_err:.2e}, "
+        f"forward {t['forward_ms']:.2f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expected per layer "
+        f"{cfg['serve']}, x {fl.cfg.n_layers} layers)")
+    if logp.shape != (fl.cfg.n_seed, fl.cfg.n_classes) or not finite \
+            or lse_err > 1e-3:
+        raise AssertionError(f"[{tag}] bad log-probs")
+    if counts != scaled(cfg["serve"], fl.cfg.n_layers):
+        raise AssertionError(f"[{tag}] launches {counts}")
+    return counts
+
+
+def loss_and_grads(dev, batch, labels, weighted=False, **overrides):
+    fl = build_flagship("bench", device=dev, seed=0, dropout=0.0, **overrides)
+    with weighted_kernel(weighted):
+        loss = fl.loss(batch, fl.sort(batch), labels)
+        loss.backward()
     return loss.item(), {n: p.grad.detach().float().cpu()
                          for n, p in fl.model.named_parameters()}
 
 
+def compare_grads(tag, what, got, ref, t0=None):
+    """Loss and every parameter gradient of ``got`` against ``ref``: the
+    loss to CPU_TOL, each gradient to GRAD_TOL of the reference's scale."""
+    (loss_g, grads_g), (loss_r, grads_r) = got, ref
+    worst, worst_name = 0.0, ""
+    for name, gr in grads_r.items():
+        rel = ((grads_g[name] - gr).abs().max() / gr.abs().max()).item()
+        if not rel <= worst:                 # a NaN is the worst there is
+            worst, worst_name = rel, name
+    loss_err = abs(loss_g - loss_r)
+    ok = worst <= GRAD_TOL and loss_err <= CPU_TOL
+    took = "" if t0 is None else f"; {time.perf_counter() - t0:.1f} s"
+    log(f"[{tag}] {what}: loss {loss_g:.5f} against {loss_r:.5f} (|diff| "
+        f"{loss_err:.2e}, tol {CPU_TOL:g}); {len(grads_r)} parameter "
+        f"gradients, worst max|diff| / max|reference| {worst:.3e} at "
+        f"{worst_name} (tol {GRAD_TOL:g}){took} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] gradients disagree: {what}")
+
+
 def phase_grads(dev, batch, labels):
     """One loss-and-gradient, dropout off, on the card (kernels) and on the
-    CPU (plain path), from the same seeded weights."""
-    loss_g, grads_g = loss_and_grads(dev, batch, labels)
+    CPU (plain path), from the same seeded weights. Returns the card's."""
+    on_card = loss_and_grads(dev, batch, labels)
     t0 = time.perf_counter()
-    loss_c, grads_c = loss_and_grads("cpu", batch, labels)
-    worst, worst_name = 0.0, ""
-    for name, gc in grads_c.items():
-        rel = ((grads_g[name] - gc).abs().max() / gc.abs().max()).item()
-        if rel > worst:
-            worst, worst_name = rel, name
-    loss_err = abs(loss_g - loss_c)
-    ok = worst <= GRAD_TOL and loss_err <= CPU_TOL
-    log(f"[grads] loss GPU {loss_g:.5f} CPU {loss_c:.5f} (|diff| "
-        f"{loss_err:.2e}, tol {CPU_TOL:g}); {len(grads_c)} parameter "
-        f"gradients, worst max|GPU - CPU| / max|CPU| {worst:.3e} at "
-        f"{worst_name} (tol {GRAD_TOL:g}); CPU pass "
-        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("GPU and CPU gradients disagree")
+    on_cpu = loss_and_grads("cpu", batch, labels)
+    compare_grads("grads", "main path, GPU against the CPU plain path",
+                  on_card, on_cpu, t0)
+    return on_card
+
+
+# routes that launch no kernel the main path and (A)-(C) do not: three
+# steps each with their launches per layer asserted, and their gradients
+# held against the main path's on the card only
+CARD_ONLY = {
+    # both groupings rebuilt in their own order: the pair twice on a runs aux
+    "recompute": dict(overrides=dict(edge_bwd="recompute"),
+                      step={"live_partials": 2, "pair_runs": 2}),
+    "src_direct": dict(overrides=dict(edge_bwd="src_direct"), step=MAIN_STEP),
+    # the guarded tilemax softmax: the spread flag is read on the host, one
+    # wait for the device per layer
+    "tilemax-auto": dict(overrides=dict(softmax_tilemax="auto"),
+                         step=MAIN_STEP),
+}
+
+
+def phase_config_grads(dev, batch, labels, main):
+    """Loss and gradients, dropout off, of configurations (A)-(C) and of the
+    other backward strategies on the card against the main path's on the
+    card (same batch, same weights: the routes differ in where values round
+    to bf16 and in summation order), and of (A)-(C) against the same
+    configuration on the CPU's plain path."""
+    for name, cfg in CONFIGS.items():
+        got = loss_and_grads(dev, batch, labels, cfg["weighted"],
+                             **cfg["overrides"])
+        compare_grads(f"grads-{name}", "GPU against the main path on the GPU",
+                      got, main)
+        t0 = time.perf_counter()
+        on_cpu = loss_and_grads("cpu", batch, labels, cfg["weighted"],
+                                **cfg["overrides"])
+        compare_grads(f"grads-{name}", "GPU against the CPU plain path", got,
+                      on_cpu, t0)
+    for name, cfg in CARD_ONLY.items():
+        t0 = time.perf_counter()
+        got = loss_and_grads(dev, batch, labels, **cfg["overrides"])
+        compare_grads(f"grads-{name}", "GPU against the main path on the GPU",
+                      got, main, t0)
 
 
 def phase_profile(fl, batch, labels):
@@ -462,6 +853,29 @@ def phase_profile(fl, batch, labels):
     log("[profile] one train step:")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
+    fl_slab = build_flagship("bench", device=fl.device, seed=0,
+                             **CONFIGS["A"]["overrides"])
+    args = fl_slab.to_device(batch, fl_slab.sort(batch), labels)
+    _, step = make_flagship_trainer(fl_slab)
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    log('[profile] one train step under edge_bwd="slab":')
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+
+    fl_c = build_flagship("bench", device=fl.device, seed=0,
+                          **CONFIGS["C"]["overrides"])
+    se = fl_c.sort(batch, with_backward=False)
+    fl_c.forward(batch, se)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fl_c.forward(batch, se)
+        torch.cuda.synchronize()
+    log("[profile] one forward under seg_rank_cap=0, softmax_pallas=True:")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -484,10 +898,32 @@ def main():
     n_edges = int(batch.edge_mask.sum())
     single = phase_kernel(fl, dev, batch)
     pair = phase_pair_kernel(fl, dev, batch)
+    others = [phase_softmax_kernel(fl, dev, batch),
+              phase_head_sum_kernel(fl, dev),
+              phase_weighted_kernel(fl, dev, batch),
+              *phase_slab_kernel(fl, dev, batch)]
     logp0, serve_counts = phase_requests(fl, n_edges)
     phase_cpu(logp0)
     train_counts, _ = phase_train(dev, batch, labels, n_edges)
-    phase_grads(dev, batch, labels)
+    main_grads = phase_grads(dev, batch, labels)
+    # launches under the configuration that runs each kernel, each counted
+    # from 0 just before that path ran
+    config_counts, config_serve = dict(NO_LAUNCH), dict(NO_LAUNCH)
+    for name, cfg in CONFIGS.items():
+        counts, _ = phase_train(dev, batch, labels, n_edges,
+                                tag=f"train-{name}",
+                                overrides=cfg["overrides"],
+                                weighted=cfg["weighted"],
+                                step_counts=cfg["step"])
+        served = phase_serve_config(dev, name)
+        for k in cfg["step"]:
+            if k not in MAIN_STEP:
+                config_counts[k], config_serve[k] = counts[k], served[k]
+    for name, cfg in CARD_ONLY.items():
+        phase_train(dev, batch, labels, n_edges, tag=f"train-{name}",
+                    overrides=cfg["overrides"], step_counts=cfg["step"])
+    config_counts["head_sum"] = phase_head_sum_path(fl, dev, batch)["head_sum"]
+    phase_config_grads(dev, batch, labels, main_grads)
     if args.profile:
         phase_profile(fl, batch, labels)
 
@@ -501,8 +937,19 @@ def main():
         rec["launches_serve"] = serve_counts[f"pair_{kind}"]
         rec["launches_train"] = train_counts[f"pair_{kind}"]
         rec["launches"] = rec["launches_train"]
+    for rec in others:
+        counter = rec.pop("counter")
+        if counter == "head_sum":
+            rec["launches"] = rec["launches_standalone"] = config_counts[counter]
+        else:
+            rec["launches_serve"] = config_serve[counter]
+            rec["launches_train"] = config_counts[counter]
+            rec["launches"] = rec["launches_serve"] + rec["launches_train"]
+        if not rec["launches"]:
+            raise AssertionError(f"{rec['name']} was never launched on its "
+                                 "path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [single, *pair]}))
+    print(json.dumps({"kernels": [single, *pair, *others]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

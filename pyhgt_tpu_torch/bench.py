@@ -12,8 +12,10 @@ AdamW with weight decay 0.01 and the no-decay mask, eps 1e-6,
 
 with edges/s = valid edges × n_layers / step time, the step time in
 ``unit``. Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and
-no such request it raises. The device probe and the ``--dp/--gp/--pp`` modes
-of the root harness are not ported yet.
+no such request it raises. ``--edge_bwd``, ``--softmax_pallas``,
+``--[no-]seg_pallas`` and ``--[no-]edge_bf16`` override the preset as the
+root harness's flags do. Its device probe, ``--fused_opt``, ``--param_bf16``
+and the ``--dp/--gp/--pp`` modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import time
 import torch
 
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
+from pyhgt_tpu_torch.ops.sorted_hgt import EDGE_BWD
 from pyhgt_tpu_torch.train.optim import cosine_schedule, make_optimizer
 from pyhgt_tpu_torch.train.step import TrainState, make_train_step
 
@@ -40,10 +43,11 @@ def make_flagship_trainer(fl):
 
 
 def run(preset: str = "bench", steps: int = 10, warmup: int = 3, device=None,
-        seed: int = 0) -> dict:
+        seed: int = 0, **overrides) -> dict:
     """Time ``steps`` train steps after ``warmup`` and return the JSON
-    record. ``device=None`` means ``cuda`` and raises without one."""
-    fl = build_flagship(preset, device=device, seed=seed)
+    record. ``device=None`` means ``cuda`` and raises without one;
+    ``overrides`` replace fields of the preset's ``FlagshipConfig``."""
+    fl = build_flagship(preset, device=device, seed=seed, **overrides)
     batch, labels = synth_flagship_batch(fl, seed=0, edge_fill=1.0)
     n_edges = int(batch.edge_mask.sum())
     args = fl.to_device(batch, fl.sort(batch), labels)
@@ -85,8 +89,27 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--edge_bf16", action="store_true", default=None,
+                    help="mixed-precision per-edge stage (bf16 values, "
+                         "f32 softmax/accumulation)")
+    ap.add_argument("--no-edge_bf16", dest="edge_bf16", action="store_false")
+    ap.add_argument("--edge_bwd", choices=EDGE_BWD, default=None,
+                    help="the edge stage's backward strategy")
+    ap.add_argument("--seg_pallas", action="store_true", default=None,
+                    help="the live_partials kernels for the wide [E, D] "
+                         "segment sums")
+    ap.add_argument("--no-seg_pallas", dest="seg_pallas",
+                    action="store_false")
+    ap.add_argument("--softmax_pallas", action="store_true", default=None,
+                    help="segment softmax through the online-partials kernel "
+                         "(runs only on the legacy target aux: "
+                         "seg_rank_cap=0)")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.preset, args.steps, args.warmup, args.device)))
+    overrides = {k: getattr(args, k) for k in
+                 ("edge_bf16", "edge_bwd", "seg_pallas", "softmax_pallas")
+                 if getattr(args, k) is not None}
+    print(json.dumps(run(args.preset, args.steps, args.warmup, args.device,
+                         **overrides)))
     return 0
 
 

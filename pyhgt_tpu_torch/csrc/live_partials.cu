@@ -12,7 +12,11 @@
 // non-decreasing within a tile and no output row is reached from two tiles:
 // every (tile, rank) pair owns its row. The wrapper checks exactly that, and
 // that every row lies inside out, on the host before the indices reach the
-// device (ops/pallas_seg.py:PallasSegAux.to).
+// device (ops/pallas_seg.py:PallasSegAux.to). In an aux marked dead_rows (the
+// singleton-split aux, sampling/sorted_batch.pallas_seg_aux_split) a negative
+// loc marks a dead row: the walk stores the run it holds and skips the row.
+// That test is compiled in only for such an aux (kDead): it cost the plain
+// walk 5% when it was unconditional.
 //
 // Design. The TPU kernel builds a one-hot [K, W+V] matrix per tile and runs it
 // through the MXU, carrying V straddle rows across sequential grid steps in
@@ -34,7 +38,7 @@ namespace {
 
 constexpr int kUnroll = 8;  // rows loaded ahead per thread
 
-template <typename T>
+template <typename T, bool kDead>
 __global__ void live_partials_kernel(const T* __restrict__ data,
                                      const int* __restrict__ loc,
                                      const int* __restrict__ blk,
@@ -71,40 +75,48 @@ __global__ void live_partials_kernel(const T* __restrict__ data,
       if (k0 + u < K) {
         const int l = sloc[k0 + u];
         if (l != cur) {
-          flush<N>(out, base + cur, col, D, acc);
+          if (!kDead || cur >= 0) flush<N>(out, base + cur, col, D, acc);
           cur = l;
         }
-        add_row<T>(raw[u], acc);
+        if (!kDead || l >= 0) add_row<T>(raw[u], acc);
       }
     }
   }
-  flush<N>(out, base + cur, col, D, acc);
+  if (!kDead || cur >= 0) flush<N>(out, base + cur, col, D, acc);
 }
 
 template <typename T>
 cudaError_t launch(const void* data, const int* loc, const int* blk,
-                   float* out, int n_tiles, int K, int D, int W,
+                   float* out, int n_tiles, int K, int D, int W, bool dead,
                    cudaStream_t stream) {
-  constexpr int N = Vec<T>::N;
-  const int vecs = D / N;  // threads needed per row
-  const int threads = vecs >= 128 ? 128 : ((vecs + 31) / 32) * 32;
-  const dim3 grid(n_tiles, (vecs + threads - 1) / threads);
-  live_partials_kernel<T><<<grid, threads, K * sizeof(int), stream>>>(
-      static_cast<const T*>(data), loc, blk, out, K, D, W);
+  dim3 grid;
+  int threads;
+  row_grid(n_tiles, D / Vec<T>::N, &grid, &threads);
+  const T* src = static_cast<const T*>(data);
+  const size_t smem = K * sizeof(int);
+  if (dead) {
+    live_partials_kernel<T, true>
+        <<<grid, threads, smem, stream>>>(src, loc, blk, out, K, D, W);
+  } else {
+    live_partials_kernel<T, false>
+        <<<grid, threads, smem, stream>>>(src, loc, blk, out, K, D, W);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. dead_rows: the aux may hold negative loc
+// entries to skip. Returns the cudaError_t of the launch.
 extern "C" int live_partials_launch(const void* data, int dtype,
                                     const int* loc, const int* blk,
                                     float* out, int n_tiles, int K, int D,
-                                    int W, void* stream) {
+                                    int W, int dead_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dead = dead_rows != 0;
   cudaError_t err =
-      dtype == 1
-          ? launch<__nv_bfloat16>(data, loc, blk, out, n_tiles, K, D, W, s)
-          : launch<float>(data, loc, blk, out, n_tiles, K, D, W, s);
+      dtype == 1 ? launch<__nv_bfloat16>(data, loc, blk, out, n_tiles, K, D, W,
+                                         dead, s)
+                 : launch<float>(data, loc, blk, out, n_tiles, K, D, W, dead, s);
   return static_cast<int>(err);
 }

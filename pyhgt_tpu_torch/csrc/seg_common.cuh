@@ -1,6 +1,7 @@
 // Shared pieces of the segment-sum kernels (live_partials.cu,
-// live_partials_pair.cu): 16-byte row vectors of f32 or bf16 values widened
-// to f32.
+// live_partials_weighted.cu, pair_walk.cuh): 16-byte row vectors of f32 or
+// bf16 values widened to f32, the store of a finished run, and the launch
+// grid over (tile, column chunk).
 
 #pragma once
 
@@ -56,6 +57,13 @@ __device__ __forceinline__ void flush(float* __restrict__ out, int64_t row,
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// One block per (tile, column chunk): its threads take adjacent 16-byte
+// column vectors of a row.
+inline void row_grid(int n_tiles, int vecs, dim3* grid, int* threads) {
+  *threads = vecs >= 128 ? 128 : ((vecs + 31) / 32) * 32;
+  *grid = dim3(n_tiles, (vecs + *threads - 1) / *threads);
 }
 
 }  // namespace

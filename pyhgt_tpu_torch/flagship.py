@@ -24,6 +24,7 @@ from pyhgt_tpu_torch import resolve_device
 from pyhgt_tpu_torch.graph.schema import GraphSchema, MetaRelation, PadSpec
 from pyhgt_tpu_torch.models.model import GNN, Classifier
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
+from pyhgt_tpu_torch.ops.sorted_hgt import EDGE_BWD
 from pyhgt_tpu_torch.sampling.batch import BatchLayout, SubgraphBatch
 from pyhgt_tpu_torch.sampling.sorted_batch import SortedEdges, sort_batch
 from pyhgt_tpu_torch.train.step import nll_loss
@@ -49,10 +50,10 @@ def flagship_schema() -> GraphSchema:
 
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
-    """The single-device subset of the JAX package's ``FlagshipConfig``.
-    Its backward always takes the ``permute`` strategy (``edge_bwd``); the
-    other strategies, ``param_bf16``, the src caps and the multi-chip knobs
-    are not ported yet."""
+    """The single-device subset of the JAX package's ``FlagshipConfig``,
+    every knob under the same name; ``remat``, ``edge_impl`` (the port has
+    the sorted path only), ``param_bf16`` and the multi-chip knobs
+    (``graph_axis``, ``gp_overlap``) are not ported yet."""
 
     node_cap: int
     edge_cap: int
@@ -66,10 +67,23 @@ class FlagshipConfig:
     save_kv: bool = False      # keep the gathered per-edge K/V for the
     # backward: 2 E×D saved buffers for 2 fewer backward gathers per layer
     edge_bf16: bool = False    # per-edge stage in bf16, sums in f32
+    edge_bwd: str = "permute"  # the edge stage's backward strategy:
+    # permute | recompute | src_direct | slab (ops/sorted_hgt._edge_bwd)
     seg_pallas: bool = False   # wide segment sums through live_partials
+    softmax_pallas: bool = False  # segment softmax through the
+    # segment_softmax_partials kernel; needs the legacy target aux
+    # (seg_rank_cap=0), else the next softmax form runs, as in the JAX package
+    seg_tile: int = 0          # kernel aux tile K (0 = ops.pallas_seg.PK)
+    seg_w: int = 0             # kernel aux output block W (0 = K)
+    src_rank_cap: int = 0      # src grouping: singleton-split aux (degree-1
+    # sources bypass the kernel via a gather); falls back per batch
+    src_split_cap: int = 0     # src grouping: two-region aux (meta blocks
+    # rank-capped at this value, the self-block tail through a plain CSR);
+    # needs the meta capacities tile-aligned, else falls back
     tab_cap: int = 0           # per-block occupied-Δt compaction of the
     # RTE tables (falls back per batch if a block occupies more slots)
-    softmax_tilemax: str = ""  # "" | "on": per-tile-max online softmax
+    softmax_tilemax: str = ""  # "" | "on" | "auto": per-tile-max online
+    # softmax, unguarded or with a per-batch check of the logit spread
     seg_rank_cap: int = 0      # tgt kernel aux rank cap V (0 = off; falls
     # back per batch to W = K if a tile holds more segments)
 
@@ -106,6 +120,7 @@ class FlagshipModel(nn.Module):
             prev_norm=True, last_norm=True, use_rte=True,
             save_kv=cfg.save_kv, edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
             softmax_tilemax=cfg.softmax_tilemax,
+            softmax_pallas=cfg.softmax_pallas, edge_bwd=cfg.edge_bwd,
         )
         self.clf = Classifier(cfg.n_hid, cfg.n_classes, generator=generator)
 
@@ -137,7 +152,10 @@ class Flagship:
         leaves out what only a training step reads."""
         c = self.cfg
         return sort_batch(batch, self.layout, self.em,
-                          tgt_rank_cap=c.seg_rank_cap, tab_cap=c.tab_cap,
+                          pk=c.seg_tile or None, pw=c.seg_w or None,
+                          tgt_rank_cap=c.seg_rank_cap,
+                          src_rank_cap=c.src_rank_cap, tab_cap=c.tab_cap,
+                          src_split_cap=c.src_split_cap,
                           with_backward=with_backward)
 
     def to_device(self, batch: SubgraphBatch, se: SortedEdges, labels=None):
@@ -183,6 +201,11 @@ def build_flagship(preset: str = "tiny", device=None, seed: int = 0,
     cfg = PRESETS[preset]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.edge_bwd not in EDGE_BWD:
+        raise ValueError(f"edge_bwd {cfg.edge_bwd!r} not in {EDGE_BWD}")
+    if cfg.softmax_tilemax not in ("", "on", "auto"):
+        raise ValueError(f"softmax_tilemax {cfg.softmax_tilemax!r} not in "
+                         "('', 'on', 'auto')")
     schema = flagship_schema()
     pad = PadSpec(node_cap=cfg.node_cap, default_edge_cap=cfg.edge_cap)
     layout = BatchLayout(schema=schema, pad=pad)

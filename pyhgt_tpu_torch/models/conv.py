@@ -81,7 +81,8 @@ class HGTConv(nn.Module):
     def __init__(self, in_dim, out_dim, num_types, num_relations, n_heads,
                  *, generator: torch.Generator, dropout=0.2, use_norm=True,
                  use_rte=True, save_kv=False, edge_bf16=False,
-                 seg_pallas=False, softmax_tilemax=""):
+                 seg_pallas=False, softmax_tilemax="", softmax_pallas=False,
+                 edge_bwd="permute"):
         super().__init__()
         T, R, H = num_types, num_relations, n_heads
         Din, Dout = in_dim, out_dim
@@ -92,7 +93,10 @@ class HGTConv(nn.Module):
         self.use_norm, self.use_rte = use_norm, use_rte
         self.edge_bf16, self.seg_pallas = edge_bf16, seg_pallas
         self.save_kv, self.dropout = save_kv, dropout
+        # "" off | "on" unguarded | "auto" guarded per batch
         self.softmax_tilemax = softmax_tilemax
+        self.softmax_pallas = softmax_pallas
+        self.edge_bwd = edge_bwd  # permute | recompute | src_direct | slab
 
         def p(*shape, init):
             t = torch.empty(shape)
@@ -134,19 +138,33 @@ class HGTConv(nn.Module):
         """[L, Din] — sin table through the trainable RTE linear."""
         return self.rte_table @ self.rte_w + self.rte_b
 
-    def forward(self, x, node_mask, se, em, generator=None):
-        aggr = hgt_conv_core_sorted(
+    def _core(self, x, se, em, **kw):
+        return hgt_conv_core_sorted(
             x, se, em,
             wq=self.wq, bq=self.bq, wk=self.wk, bk=self.bk,
             wv=self.wv, bv=self.bv,
             rel_pri=self.rel_pri, rel_att=self.rel_att, rel_msg=self.rel_msg,
             n_heads=self.n_heads,
             rte_vec=self.rte_vectors() if self.use_rte else None,
-            save_kv=self.save_kv,
             edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
             seg_pallas=self.seg_pallas,
-            softmax_tilemax=self.softmax_tilemax,
+            softmax_pallas=self.softmax_pallas, **kw,
         )
+
+    @torch.no_grad()
+    def attention_weights(self, x, se, em):
+        """``[E, H]`` softmax attention per edge, in ``se``'s sorted edge
+        order (the reference keeps it on the module for visualization,
+        ``pyHGT/conv.py:106-108``). It rides the production core with
+        ``return_attention``, so the weights are the forward's by
+        construction; as in the JAX package, the shift-scan or kernel
+        softmax computes them, whatever ``softmax_tilemax`` says."""
+        return self._core(x, se, em, return_attention=True)[1]
+
+    def forward(self, x, node_mask, se, em, generator=None):
+        aggr = self._core(
+            x, se, em, save_kv=self.save_kv,
+            softmax_tilemax=self.softmax_tilemax, edge_bwd=self.edge_bwd)
         # update half (conv.py:114-134): exact (erf) gelu as the reference's
         # F.gelu (conv.py:119), per-type A linear, sigmoid skip gate, norm
         trans = typed_linear(F.gelu(aggr), self.wa, self.ba)

@@ -24,7 +24,8 @@ class GNN(nn.Module):
                  n_layers, *, generator: torch.Generator, dropout=0.2,
                  prev_norm=False, last_norm=False, use_rte=True,
                  save_kv=False, edge_bf16=False, seg_pallas=False,
-                 softmax_tilemax=""):
+                 softmax_tilemax="", softmax_pallas=False,
+                 edge_bwd="permute"):
         super().__init__()
         self.adapt_w = nn.Parameter(
             lecun_normal_(torch.empty(num_types, in_dim, n_hid), generator))
@@ -38,6 +39,7 @@ class GNN(nn.Module):
                 use_rte=use_rte, save_kv=save_kv, edge_bf16=edge_bf16,
                 seg_pallas=seg_pallas,
                 softmax_tilemax=softmax_tilemax,
+                softmax_pallas=softmax_pallas, edge_bwd=edge_bwd,
             )
             for li in range(n_layers)
         )

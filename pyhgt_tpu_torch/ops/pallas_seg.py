@@ -1,30 +1,37 @@
-"""Segment sums over sorted edges — the ``live_partials`` kernels.
+"""Segment reductions over sorted edges — the port's hand-written kernels.
 
-Counterpart of :mod:`pyhgt_tpu.ops.pallas_seg` (its ``live_partials`` and
-``live_partials_pair``; the module keeps the JAX file's name so each
-counterpart is found by path). Level 1 of the hierarchical segment sum: per
-(tile, local segment rank), the partial sum of the tile's rows of that
-segment, written to the row ``blk[t]*W + loc[t, k]`` of a ``[NB*W, D]`` f32
-buffer whose other rows are zero. Level 2 (combining the live rows of each
-segment) stays plain torch:
-:func:`pyhgt_tpu_torch.ops.sorted_hgt.seg_sum_csr` over ``aux.ptr2``.
+Counterpart of :mod:`pyhgt_tpu.ops.pallas_seg` (the module keeps the JAX
+file's name so each counterpart is found by path). Six functions, one per
+TPU kernel of that file:
 
-On a CUDA tensor :func:`live_partials` and :func:`live_partials_pair` launch
-the hand-written Hopper kernels ``csrc/live_partials.cu`` and
-``csrc/live_partials_pair.cu`` or raise; on a CPU tensor they run
-:func:`live_partials_plain` and :func:`live_partials_pair_plain`, the same
-functions in plain PyTorch. Host aux construction lives in
-:mod:`pyhgt_tpu_torch.sampling.sorted_batch` (``pallas_seg_aux``,
-``pallas_tab_window_aux``).
+- :func:`live_partials`, :func:`live_partials_pair`,
+  :func:`live_partials_weighted`, :func:`live_partials_slab`: level 1 of the
+  hierarchical segment sum. Per (tile, local segment rank), the partial sum
+  of the tile's rows of that segment (of one tensor, of two under one aux,
+  of ``head_expand(w) * v``, of the two lane halves of one slab), written to
+  the row ``blk[t]*W + loc[t, k]`` of a ``[NB*W, D]`` f32 buffer whose other
+  rows are zero. Level 2 (combining the live rows of each segment) stays
+  plain torch: :func:`pyhgt_tpu_torch.ops.sorted_hgt.seg_sum_csr` over
+  ``aux.ptr2``.
+- :func:`segment_softmax_partials`: per (tile, rank) the bf16-rounded max
+  and the sum of ``exp(att - max)`` of target-sorted logits, level 1 of the
+  online segment softmax.
+- :func:`head_sum_product`: ``[E, H]`` per-head lane sums of ``a * b``.
 
-Two kinds of aux reach the pair: **runs** (``pallas_seg_aux``: ``loc``
-sorted within a tile, every (tile, rank) owns its output row) and
-**window** (``pallas_tab_window_aux``, ``aux.window``: ``loc`` in any
-order, output rows shared by all tiles of a block). The aux's constructor
-marks which; the single-tensor kernel takes runs only. The singleton-split
-aux of the JAX package (``pallas_seg_aux_split``, negative ``loc`` for rows
-that bypass the kernel) is not ported: :func:`check_rows` refuses a negative
-``loc``, and a port of that aux must give the kernels a dead row to skip.
+On a CUDA tensor each function launches its Hopper kernel
+(``csrc/<name>.cu``, built by :mod:`~pyhgt_tpu_torch.ops.cuda_build`) or
+raises, and adds one to its ``launches`` count; on a CPU tensor it runs its
+``*_plain`` version, the same function in plain PyTorch. Host aux
+construction lives in :mod:`pyhgt_tpu_torch.sampling.sorted_batch`
+(``pallas_seg_aux``, ``pallas_seg_aux_split``, ``pallas_tab_window_aux``).
+
+Three kinds of aux, marked by their constructors: **runs**
+(``pallas_seg_aux``: ``loc`` sorted within a tile, every (tile, rank) owns
+its output row); runs with **dead rows** (``pallas_seg_aux_split``,
+``aux.dead_rows``: rows that bypass the kernel carry ``loc = -1`` and the
+kernels skip them); and **window** (``pallas_tab_window_aux``,
+``aux.window``: ``loc`` in any order, output rows shared by all tiles of a
+block), which only the pair and the slab take.
 """
 
 from __future__ import annotations
@@ -46,6 +53,15 @@ PW = 384
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 12288  # the tile's loc row sits in 48 KB of shared memory
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _c_fn(name: str, argtypes):
+    """``<name>_launch`` of the library built from ``csrc/<name>.cu``."""
+    fn = getattr(cuda_build.load(name), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 @dataclasses.dataclass
@@ -61,7 +77,10 @@ class PallasSegAux:
     rows). ``w``: the output-block row count W. ``v``: the rank cap V, the
     most live rows any tile adds (0 = legacy: V = K). ``window``: ``loc`` is
     unsorted within a tile and the tiles of one block share output rows (the
-    tab-window aux); only :func:`live_partials_pair` takes such an aux.
+    tab-window aux); only :func:`live_partials_pair` and
+    :func:`live_partials_slab` take such an aux. ``dead_rows``: a runs aux
+    whose ``loc`` is -1 on rows that bypass the kernel (the singleton-split
+    aux); the kernels skip them.
     """
 
     loc: object
@@ -71,6 +90,7 @@ class PallasSegAux:
     w: int = 512
     v: int = 0
     window: bool = False
+    dead_rows: bool = False
     # set by :meth:`to` once check_rows passed; the kernels take no other aux
     rows_checked: bool = dataclasses.field(default=False, repr=False)
 
@@ -111,22 +131,24 @@ def check_rows(aux: PallasSegAux):
     ``[0, W + V)``; the tiles' rows ``blk[t]*W + loc`` increase strictly
     from one tile to the next; the last row lies inside the ``[NB*W]``
     output. Then each (tile, run) owns its row and no store leaves the
-    buffer.
+    buffer. With ``aux.dead_rows`` a ``loc`` of -1 marks a row the kernels
+    skip, and the same contract holds over the other entries.
 
     Window aux (``aux.window``): ``loc`` in any order within ``[0, W + V)``;
     ``blk`` starts anywhere, never decreases and steps by at most one; every
     row ``blk[t]*W + loc`` lies inside the output. Rows are shared between
     tiles, so the kernel adds them atomically.
 
-    A negative ``loc`` (the JAX package's singleton-split aux marks rows
-    that bypass the kernel so) is refused in both cases.
+    A negative ``loc`` on an aux not marked ``dead_rows`` is refused, and
+    so is a window aux with dead rows.
     """
     loc, blk = np.asarray(aux.loc), np.asarray(aux.blk)
     n_tiles, K = loc.shape
     if blk.shape[0] < n_tiles:
         raise ValueError("aux.blk shorter than the tile count")
     rows = blk[:n_tiles, None].astype(np.int64) * aux.w + loc
-    in_window = loc.min() >= 0 and loc.max() < aux.w + (aux.v or K)
+    lowest = -1 if aux.dead_rows and not aux.window else 0
+    in_window = loc.min() >= lowest and loc.max() < aux.w + (aux.v or K)
     if aux.window:
         steps = np.diff(blk[:n_tiles])
         if (not in_window or blk[0] < 0 or np.any(steps < 0)
@@ -135,31 +157,45 @@ def check_rows(aux: PallasSegAux):
             raise ValueError("aux rows break the window contract (loc in "
                              "[0, W + V), block steps of 0 or 1, in bounds)")
         return
+    # the live entries in edge order: rows may repeat within a tile and must
+    # grow from one tile to the next
+    live = loc >= 0
+    live_rows = rows[live]
+    tile_of = np.broadcast_to(np.arange(n_tiles)[:, None], loc.shape)[live]
+    step, same_tile = np.diff(live_rows), np.diff(tile_of) == 0
     if (not in_window
-            or np.any(np.diff(loc, axis=1) < 0)
-            or np.any(rows[1:, 0] <= rows[:-1, -1])
-            or rows[-1, -1] >= aux.num_blocks * aux.w):
+            or np.any(step[same_tile] < 0)
+            or np.any(step[~same_tile] <= 0)
+            or (live_rows.size and live_rows[-1] >= aux.num_blocks * aux.w)):
         raise ValueError("aux rows break the live_partials contract "
                          "(sorted ranks per tile, disjoint tiles, in bounds)")
 
 
 def out_rows(aux: PallasSegAux) -> torch.Tensor:
-    """[E] int64: the output row ``blk[t]*W + loc[t, k]`` of every edge."""
+    """[E] int64: the output row ``blk[t]*W + loc[t, k]`` of every edge
+    (negative for a dead row)."""
     n_tiles = aux.loc.shape[0]
     rows = aux.blk[:n_tiles].long()[:, None] * aux.w + aux.loc.long()
-    return rows.reshape(-1)
+    return torch.where(aux.loc < 0, -1, rows).reshape(-1)
 
 
-def _add_rows(data: torch.Tensor, rows: torch.Tensor, n_out: int):
+def _add_rows(data: torch.Tensor, rows: torch.Tensor, n_out: int,
+              dead_rows: bool = False):
     out = torch.zeros((n_out, data.shape[1]), dtype=torch.float32,
                       device=data.device)
-    return out.index_add_(0, rows, data.float())
+    data = data.float()
+    if dead_rows:
+        keep = rows >= 0
+        rows, data = rows[keep], data[keep]
+    return out.index_add_(0, rows, data)
 
 
 def live_partials_plain(data: torch.Tensor, aux: PallasSegAux) -> torch.Tensor:
     """Plain PyTorch version of :func:`live_partials`: an f32
-    ``index_add_`` of every row into ``blk[t]*W + loc[t, k]``."""
-    return _add_rows(data, out_rows(aux), aux.num_blocks * aux.w)
+    ``index_add_`` of every row (but the aux's dead rows) into
+    ``blk[t]*W + loc[t, k]``."""
+    return _add_rows(data, out_rows(aux), aux.num_blocks * aux.w,
+                     aux.dead_rows)
 
 
 def live_partials_pair_plain(d1: torch.Tensor, d2: torch.Tensor,
@@ -168,7 +204,8 @@ def live_partials_pair_plain(d1: torch.Tensor, d2: torch.Tensor,
     ``index_add_`` into the rows ``blk[t]*W + loc[t, k]``. It does not care
     whether ``loc`` is sorted, so it serves the runs and the window aux."""
     rows, n_out = out_rows(aux), aux.num_blocks * aux.w
-    return _add_rows(d1, rows, n_out), _add_rows(d2, rows, n_out)
+    return (_add_rows(d1, rows, n_out, aux.dead_rows),
+            _add_rows(d2, rows, n_out, aux.dead_rows))
 
 
 def _check(data: torch.Tensor, aux: PallasSegAux):
@@ -193,8 +230,15 @@ def _check_common(data: torch.Tensor, aux: PallasSegAux):
                          f"({data.dtype} in 16-byte vectors)")
     if not 0 < K <= _MAX_K:
         raise ValueError(f"tile size {K} outside (0, {_MAX_K}]")
-    if aux.w < (aux.v or K):
-        raise ValueError(f"W = {aux.w} < V = {aux.v or K}")
+    _check_aux(data, aux)
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned")
+
+
+def _check_aux(data: torch.Tensor, aux: PallasSegAux):
+    """What every kernel needs of its aux and of where its tensors lie."""
+    if aux.w < (aux.v or aux.loc.shape[1]):
+        raise ValueError(f"W = {aux.w} < V = {aux.v or aux.loc.shape[1]}")
     if not aux.rows_checked:
         raise ValueError("aux must come from PallasSegAux.to (rows checked)")
     for name, t in (("data", data), ("loc", aux.loc), ("blk", aux.blk)):
@@ -204,17 +248,12 @@ def _check_common(data: torch.Tensor, aux: PallasSegAux):
             raise ValueError(f"{name} must be contiguous")
     if aux.loc.dtype != torch.int32 or aux.blk.dtype != torch.int32:
         raise TypeError("aux.loc and aux.blk must be int32")
-    if data.data_ptr() % 16:
-        raise ValueError("data must be 16-byte aligned")
 
 
 def _launch(data: torch.Tensor, aux: PallasSegAux) -> torch.Tensor:
-    lib = cuda_build.load("live_partials")
-    fn = lib.live_partials_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = _c_fn("live_partials",
+               [_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                _PTR])
     n_tiles, K = aux.loc.shape
     D = data.shape[1]
     with torch.cuda.device(data.device):
@@ -223,7 +262,7 @@ def _launch(data: torch.Tensor, aux: PallasSegAux) -> torch.Tensor:
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype],
                  aux.loc.data_ptr(), aux.blk.data_ptr(), out.data_ptr(),
-                 n_tiles, K, D, aux.w, stream)
+                 n_tiles, K, D, aux.w, int(aux.dead_rows), stream)
     if err:
         raise RuntimeError(f"live_partials kernel launch failed: cudaError {err}")
     return out
@@ -260,6 +299,10 @@ def _check_pair(d1: torch.Tensor, d2: torch.Tensor, aux: PallasSegAux):
                         f"{d1.dtype}/{d1.device} and {d2.dtype}/{d2.device}")
     if not d2.is_contiguous() or d2.data_ptr() % 16:
         raise ValueError("d2 must be contiguous and 16-byte aligned")
+    _check_window_fits(aux)
+
+
+def _check_window_fits(aux: PallasSegAux):
     K = aux.loc.shape[1]
     if aux.window and 2 * K + aux.w + (aux.v or K) + 1 > _MAX_K:
         raise ValueError(
@@ -267,14 +310,21 @@ def _check_pair(d1: torch.Tensor, d2: torch.Tensor, aux: PallasSegAux):
             "kernel's sort does not fit 48 KB of shared memory")
 
 
+# the PairKind values of csrc/pair_walk.cuh
+PAIR_RUNS, PAIR_WINDOW, PAIR_RUNS_DEAD = 0, 1, 2
+
+
+def _pair_kind(aux: PallasSegAux) -> int:
+    """Which of the pair's (and the slab's) kernels an aux takes."""
+    if aux.window:
+        return PAIR_WINDOW
+    return PAIR_RUNS_DEAD if aux.dead_rows else PAIR_RUNS
+
+
 def _launch_pair(d1, d2, aux: PallasSegAux):
-    lib = cuda_build.load("live_partials_pair")
-    fn = lib.live_partials_pair_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = _c_fn("live_partials_pair",
+               [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                _INT, _INT, _INT, _PTR])
     n_tiles, K = aux.loc.shape
     D = d1.shape[1]
     with torch.cuda.device(d1.device):
@@ -285,7 +335,7 @@ def _launch_pair(d1, d2, aux: PallasSegAux):
         err = fn(d1.data_ptr(), d2.data_ptr(), _DTYPE_CODE[d1.dtype],
                  aux.loc.data_ptr(), aux.blk.data_ptr(), o1.data_ptr(),
                  o2.data_ptr(), n_tiles, K, D, aux.w, aux.w + (aux.v or K),
-                 int(aux.window), stream)
+                 _pair_kind(aux), stream)
     if err:
         raise RuntimeError(
             f"live_partials_pair kernel launch failed: cudaError {err}")
@@ -328,3 +378,285 @@ def live_partials_pair(d1: torch.Tensor, d2: torch.Tensor, aux: PallasSegAux):
 
 live_partials_pair.launches = 0
 live_partials_pair.window_launches = 0
+
+
+# ------------------------------------------------------ live_partials_slab
+def live_partials_slab_plain(data: torch.Tensor, aux: PallasSegAux):
+    """Plain PyTorch version of :func:`live_partials_slab`: the pair's
+    plain version on the two lane halves."""
+    D = data.shape[1] // 2
+    return live_partials_pair_plain(data[:, :D], data[:, D:], aux)
+
+
+def _launch_slab(data, aux: PallasSegAux):
+    fn = _c_fn("live_partials_slab",
+               [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                _INT, _INT, _PTR])
+    n_tiles, K = aux.loc.shape
+    D = data.shape[1] // 2
+    with torch.cuda.device(data.device):
+        shape = (aux.num_blocks * aux.w, D)
+        o1 = torch.zeros(shape, dtype=torch.float32, device=data.device)
+        o2 = torch.zeros(shape, dtype=torch.float32, device=data.device)
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype], aux.loc.data_ptr(),
+                 aux.blk.data_ptr(), o1.data_ptr(), o2.data_ptr(), n_tiles, K,
+                 D, aux.w, aux.w + (aux.v or K), _pair_kind(aux), stream)
+    if err:
+        raise RuntimeError(
+            f"live_partials_slab kernel launch failed: cudaError {err}")
+    return o1, o2
+
+
+def live_partials_slab(data: torch.Tensor, aux: PallasSegAux):
+    """Per-(tile, local-segment) partial sums of the two lane halves of
+    sorted ``data [E, 2D]`` under one aux: ``(p1, p2)``, each ``[NB * W, D]``
+    f32 as :func:`live_partials` would return it for that half. One pass
+    over one tensor: the edge stage's ``slab`` backward concatenates g_k and
+    g_v along the lanes so that it permutes rows once.
+
+    ``aux`` is a runs aux or a window aux, as for
+    :func:`live_partials_pair` (the window case adds with f32 atomics, so
+    the last bits of its sums change from run to run). The lane count must
+    split into two 128-aligned halves. A CUDA tensor goes through the Hopper
+    kernel (each launch adds one to ``live_partials_slab.launches``, and one
+    to ``live_partials_slab.window_launches`` if the aux was a window); a
+    CPU tensor through :func:`live_partials_slab_plain`.
+    """
+    if data.dim() != 2 or data.shape[1] % 256:
+        raise ValueError(f"slab lanes {tuple(data.shape)} must split into "
+                         "128-aligned halves")
+    n_tiles, K = aux.loc.shape
+    if data.shape[0] != n_tiles * K:
+        raise ValueError(f"data rows {data.shape[0]} != aux tiles "
+                         f"{n_tiles} * {K}")
+    if data.device.type == "cpu":
+        return live_partials_slab_plain(data, aux)
+    if data.device.type != "cuda":
+        raise ValueError(
+            f"live_partials_slab runs on cuda or cpu, not {data.device}")
+    _check_common(data, aux)
+    _check_window_fits(aux)
+    out = _launch_slab(data, aux)
+    live_partials_slab.launches += 1
+    live_partials_slab.window_launches += int(aux.window)
+    return out
+
+
+live_partials_slab.launches = 0
+live_partials_slab.window_launches = 0
+
+
+# -------------------------------------------------- live_partials_weighted
+def live_partials_weighted_plain(w: torch.Tensor, v: torch.Tensor, dk: int,
+                                 aux: PallasSegAux) -> torch.Tensor:
+    """Plain PyTorch version of :func:`live_partials_weighted`: the f32
+    product ``head_expand(w) * v`` through :func:`live_partials_plain`."""
+    msg = w.float().repeat_interleave(dk, dim=1) * v.float()
+    return live_partials_plain(msg, aux)
+
+
+def _launch_weighted(w, v, dk, aux: PallasSegAux):
+    fn = _c_fn("live_partials_weighted",
+               [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                _INT, _INT, _PTR])
+    n_tiles, K = aux.loc.shape
+    D = v.shape[1]
+    with torch.cuda.device(v.device):
+        out = torch.zeros((aux.num_blocks * aux.w, D), dtype=torch.float32,
+                          device=v.device)
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = fn(w.data_ptr(), v.data_ptr(), _DTYPE_CODE[v.dtype],
+                 aux.loc.data_ptr(), aux.blk.data_ptr(), out.data_ptr(),
+                 n_tiles, K, D, D // dk, aux.w, int(aux.dead_rows), stream)
+    if err:
+        raise RuntimeError(
+            f"live_partials_weighted kernel launch failed: cudaError {err}")
+    return out
+
+
+def live_partials_weighted(w: torch.Tensor, v: torch.Tensor, dk: int,
+                           aux: PallasSegAux) -> torch.Tensor:
+    """Per-(tile, local-segment) partial sums of the weighted messages
+    ``head_expand(w) * v``: :func:`live_partials` with the per-edge product
+    formed in the kernel, so the ``[E, D]`` message tensor is never written.
+    ``w [E, H]`` f32 per-head scalars, ``v [E, D]`` f32 or bf16 values with
+    ``D = H * dk``, both in the aux's edge order; product and sum in f32.
+    ``aux`` is a runs aux. A CUDA tensor goes through the Hopper kernel
+    (each launch adds one to ``live_partials_weighted.launches``); a CPU
+    tensor through :func:`live_partials_weighted_plain`.
+    """
+    if v.dim() != 2 or dk <= 0 or v.shape[1] % dk:
+        raise ValueError(f"v {tuple(v.shape)} does not split into heads of "
+                         f"{dk} lanes")
+    E, D = v.shape
+    if tuple(w.shape) != (E, D // dk):
+        raise ValueError(f"w {tuple(w.shape)} != ({E}, {D // dk})")
+    n_tiles, K = aux.loc.shape
+    if E != n_tiles * K:
+        raise ValueError(f"data rows {E} != aux tiles {n_tiles} * {K}")
+    if v.device.type == "cpu":
+        return live_partials_weighted_plain(w, v, dk, aux)
+    if v.device.type != "cuda":
+        raise ValueError(
+            f"live_partials_weighted runs on cuda or cpu, not {v.device}")
+    _check(v, aux)
+    vec = 16 // v.element_size()
+    if dk % vec:
+        raise ValueError(f"head width {dk} must be a multiple of {vec}: a "
+                         "thread's 16-byte vector lies inside one head")
+    if (w.dtype != torch.float32 or w.device != v.device
+            or not w.is_contiguous()):
+        raise TypeError("w must be a contiguous float32 tensor on v's device")
+    out = _launch_weighted(w, v, dk, aux)
+    live_partials_weighted.launches += 1
+    return out
+
+
+live_partials_weighted.launches = 0
+
+
+# -------------------------------------------------------- head_sum_product
+def head_sum_product_plain(a: torch.Tensor, b: torch.Tensor,
+                           dk: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`head_sum_product`: the f32 product,
+    then each head's lane sum."""
+    E, D = a.shape
+    return (a.float() * b.float()).reshape(E, D // dk, dk).sum(-1)
+
+
+def head_sum_product(a: torch.Tensor, b: torch.Tensor, dk: int) -> torch.Tensor:
+    """Per-head reduction ``[E, H] = sum over each head's dk lanes of
+    a * b`` (f32) without writing the ``[E, D]`` product. ``a`` and ``b``
+    ``[E, D]``, both f32 or both bf16. As in the JAX package, shapes that
+    differ, ``E`` not a multiple of ``PK`` or ``D`` not a multiple of ``dk``
+    raise ValueError. A CUDA tensor goes through the Hopper kernel (each
+    launch adds one to ``head_sum_product.launches``); a CPU tensor through
+    :func:`head_sum_product_plain`.
+    """
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    if a.dim() != 2:
+        raise ValueError(f"head_sum_product takes 2-D data, got "
+                         f"{tuple(a.shape)}")
+    E, D = a.shape
+    if E % PK or dk <= 0 or D % dk:
+        raise ValueError(f"E={E} not a multiple of {PK} or D={D} % dk")
+    if a.device.type == "cpu":
+        return head_sum_product_plain(a, b, dk)
+    if a.device.type != "cuda":
+        raise ValueError(
+            f"head_sum_product runs on cuda or cpu, not {a.device}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise TypeError("head_sum_product takes two f32 or two bf16 tensors, "
+                        f"got {a.dtype} and {b.dtype}")
+    if b.device != a.device:
+        raise ValueError("a and b must lie on one device")
+    vec = 16 // a.element_size()
+    group = dk // vec
+    if dk % vec or group > 32 or group & (group - 1):
+        raise ValueError(f"head width {dk}: dk / {vec} must be a power of "
+                         "two up to 32 (the lanes of a head share a warp)")
+    for name, t in (("a", a), ("b", b)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    fn = _c_fn("head_sum_product",
+               [_PTR, _PTR, _INT, _PTR, ctypes.c_longlong, _INT, _INT, _PTR])
+    with torch.cuda.device(a.device):
+        out = torch.empty((E, D // dk), dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype],
+                 out.data_ptr(), E, D, dk, stream)
+    if err:
+        raise RuntimeError(
+            f"head_sum_product kernel launch failed: cudaError {err}")
+    head_sum_product.launches += 1
+    return out
+
+
+head_sum_product.launches = 0
+
+
+# ------------------------------------------------ segment_softmax_partials
+def segment_softmax_partials_plain(att: torch.Tensor, aux: PallasSegAux):
+    """Plain PyTorch version of :func:`segment_softmax_partials`: a
+    scatter-max of every row into ``blk[t]*W + loc[t, k]``, its bf16
+    rounding, and an ``index_add_`` of the gated ``exp``."""
+    rows = out_rows(aux)
+    n_out, H = aux.num_blocks * aux.w, att.shape[1]
+    att = att.float()
+    idx = rows[:, None].expand(-1, H)
+    m = torch.zeros((n_out, H), dtype=torch.float32, device=att.device)
+    m.scatter_reduce_(0, idx, att, "amax", include_self=False)
+    m = m.to(torch.bfloat16).float()        # round to nearest even
+    ex = torch.where(att > -5e29,
+                     torch.exp(torch.clamp(att - m[rows], max=80.0)),
+                     torch.zeros_like(att))
+    s = torch.zeros_like(m).index_add_(0, rows, ex)
+    return m, s
+
+
+def segment_softmax_partials(att: torch.Tensor, aux: PallasSegAux):
+    """Per-(tile, local-segment) online-softmax partials of target-sorted
+    logits ``att [E, H]`` (f32; masked edges carry -1e30).
+
+    Returns ``(m_rows, s_rows)``, both ``[NB * W, H]`` f32: for the live row
+    ``blk[t]*W + loc`` of a (tile, segment) slice, ``m_rows`` holds the bf16
+    rounding (to nearest even, kept as f32) of the slice's max and
+    ``s_rows`` the sum over the slice of ``exp(min(att - m, 80))``, with
+    rows at or below -5e29 adding nothing; rows no slice reaches are 0 in
+    both. A slice of masked rows only has a finite ``m`` and ``s = 0``. The
+    caller merges rows per segment
+    (:func:`pyhgt_tpu_torch.ops.sorted_hgt._softmax_pallas`); since this
+    ``exp`` and that merge use the same rounded max, the softmax is exact
+    up to f32 rounding.
+
+    ``aux`` is a runs aux without dead rows. A CUDA tensor goes through the
+    Hopper kernel (each launch adds one to
+    ``segment_softmax_partials.launches``); a CPU tensor through
+    :func:`segment_softmax_partials_plain`.
+    """
+    if att.dim() != 2:
+        raise ValueError(f"att must be [E, H], got {tuple(att.shape)}")
+    E, H = att.shape
+    n_tiles, K = aux.loc.shape
+    if E != n_tiles * K:
+        raise ValueError(f"att rows {E} != aux tiles {n_tiles} * {K}")
+    if aux.window or aux.dead_rows:
+        raise ValueError("segment_softmax_partials takes a runs aux without "
+                         "dead rows")
+    if att.device.type == "cpu":
+        return segment_softmax_partials_plain(att, aux)
+    if att.device.type != "cuda":
+        raise ValueError(
+            f"segment_softmax_partials runs on cuda or cpu, not {att.device}")
+    if att.dtype != torch.float32:
+        raise TypeError(f"att must be float32, got {att.dtype}")
+    if not 0 < K * (H + 1) * 4 <= 48 * 1024:
+        raise ValueError(f"a tile of {K} x {H} logits and its loc row do not "
+                         "fit 48 KB of shared memory")
+    _check_aux(att, aux)
+    fn = _c_fn("segment_softmax_partials",
+               [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR])
+    with torch.cuda.device(att.device):
+        shape = (aux.num_blocks * aux.w, H)
+        m = torch.zeros(shape, dtype=torch.float32, device=att.device)
+        s = torch.zeros(shape, dtype=torch.float32, device=att.device)
+        stream = torch.cuda.current_stream(att.device).cuda_stream
+        err = fn(att.data_ptr(), aux.loc.data_ptr(), aux.blk.data_ptr(),
+                 m.data_ptr(), s.data_ptr(), n_tiles, K, H, aux.w, stream)
+    if err:
+        raise RuntimeError(
+            f"segment_softmax_partials kernel launch failed: cudaError {err}")
+    segment_softmax_partials.launches += 1
+    return m, s
+
+
+segment_softmax_partials.launches = 0
+
+# every kernel source under csrc/, in the order of the JAX package's kernels
+KERNEL_SOURCES = (
+    "live_partials", "live_partials_pair", "segment_softmax_partials",
+    "head_sum_product", "live_partials_weighted", "live_partials_slab",
+)

@@ -1,26 +1,30 @@
 """Scatter-free HGT edge stage over target-sorted edges.
 
-Counterpart of :mod:`pyhgt_tpu.ops.sorted_hgt`, as far as the flagship's
-forward and its permute-strategy backward read it. The edge stage is: gather the K/V rows of each edge
+Counterpart of :mod:`pyhgt_tpu.ops.sorted_hgt` on one device. The edge
+stage is: gather the K/V rows of each edge
 (relation-transformed node banks + RTE tables), score against the target's
 query, softmax per target segment, and sum the weighted messages per
 target. Per-segment reductions follow the JAX package's hierarchical
 scheme over the host aux of :mod:`pyhgt_tpu_torch.sampling.sorted_batch`:
 
 - level 1 sums rows per (tile, local segment rank): the wide ``[E, D]``
-  aggregation through the ``live_partials`` kernel
+  aggregation through the ``live_partials`` kernels
   (:mod:`pyhgt_tpu_torch.ops.pallas_seg`) when ``seg_pallas`` is on, the
   narrow ``[E, H]`` softmax sums by an ``index_add_`` into tile-local rows
-  (the TPU package's per-tile one-hot matmul computes the same sums);
+  (the TPU package's per-tile one-hot matmul computes the same sums) or,
+  with ``softmax_pallas``, through the ``segment_softmax_partials`` kernel;
 - level 2 adds the few live rows of each segment together.
 
 The JAX package wraps the edge stage in a ``jax.custom_vjp``; here it is a
 ``torch.autograd.Function`` (:func:`hgt_edge_stage`) whose backward is the
-JAX package's scatter-free ``_edge_bwd`` in its ``permute`` strategy: the
-gradients of the gathered K/V banks and RTE tables are segment sums over
-the src and tab groupings (the ``live_partials_pair`` kernel), never
-scatters. The ``recompute``, ``src_direct`` and ``slab`` strategies are not
-ported yet. The algebra matches the reference (``pyHGT/conv.py:60-111``).
+JAX package's scatter-free ``_edge_bwd``: the gradients of the gathered K/V
+banks and RTE tables are segment sums over the src and tab groupings, never
+scatters. Its four strategies (``edge_bwd``) differ in how the per-edge
+gradient rows reach src order: ``permute`` (two ``[E, D]`` row permutes,
+``live_partials_pair``), ``slab`` (one ``[E, 2D]`` permute,
+``live_partials_slab``), ``src_direct`` and ``recompute`` (rebuilt in the
+sorted order from node-sized tables). The algebra matches the reference
+(``pyHGT/conv.py:60-111``).
 """
 
 from __future__ import annotations
@@ -34,10 +38,25 @@ from pyhgt_tpu_torch.ops.hgt import (
     _rte_block_tables,
     typed_linear,
 )
-from pyhgt_tpu_torch.ops.pallas_seg import live_partials, live_partials_pair
+from pyhgt_tpu_torch.ops.pallas_seg import (
+    live_partials,
+    live_partials_pair,
+    live_partials_slab,
+    live_partials_weighted,
+    segment_softmax_partials,
+)
 
 NEG = -1e30
 _TILE = 128  # narrow-reduction tile (the host aux's REDUCE_TILE)
+EDGE_BWD = ("permute", "recompute", "src_direct", "slab")
+# Routes _seg_sum_weighted through the live_partials_weighted kernel (the
+# product head_expand(w) * v formed in the kernel, the [E, D] message tensor
+# never written). Off, as in the JAX package; read at call time, in the
+# forward and in the backward, so a caller may flip it between steps.
+WEIGHTED_KERNEL = False
+# exp(att - m_tile) underflows to zero below ~-87.3 (f32 min normal); the
+# "auto" tilemax guard trips with headroom
+TILEMAX_SPREAD = 80.0
 
 
 # ---------------------------------------------------------------- primitives
@@ -164,9 +183,34 @@ def _seg_sum_grouped_pair(d1, d2, se, grouping: str, use_pallas: bool):
     pass, ``loc`` read once: the backward's g_k/g_v pairs) when eligible,
     otherwise two independent reductions.
 
-    The JAX package's two-region (``pseg_src_lo``) and singleton-split
-    (``pseg_src_multi``) src branches are not ported yet; they wait for
-    their host aux."""
+    The SRC grouping has two narrower forms when the batch carries their
+    aux. Two-region (``pseg_src_lo``): the meta blocks, a static contiguous
+    slice, through the rank-capped aux; the self-block tail (one edge per
+    node) by a plain CSR sum over its few rows; the banks concatenate, since
+    the segment spaces are disjoint. Singleton-split (``pseg_src_multi``):
+    degree-1 segments, whose "sum" is one row copy, bypass the kernel through
+    a pure gather (their rows are dead rows of the aux)."""
+    lo = se.pseg_src_lo if grouping == "src" else None
+    if (lo is not None and _pallas_ok(d1, lo, use_pallas)
+            and d1.shape == d2.shape):
+        cut = se.src_cut
+        l1, l2 = live_partials_pair(d1[:cut], d2[:cut], lo)
+        h1 = seg_sum_csr(l1, lo.ptr2)
+        h2 = seg_sum_csr(l2, lo.ptr2)
+        t1 = seg_sum_csr(d1[cut:], se.src_tail_ptr2)
+        t2 = seg_sum_csr(d2[cut:], se.src_tail_ptr2)
+        return torch.cat([h1, t1], dim=0), torch.cat([h2, t2], dim=0)
+    pm = se.pseg_src_multi if grouping == "src" else None
+    if (pm is not None and _pallas_ok(d1, pm, use_pallas)
+            and d1.shape == d2.shape):
+        l1, l2 = live_partials_pair(d1, d2, pm)
+        s1 = seg_sum_csr(l1, pm.ptr2)
+        s2 = seg_sum_csr(l2, pm.ptr2)
+        idx, inv = se.src_single_edges, se.src_single_inv
+        z = torch.zeros((1, d1.shape[1]), dtype=s1.dtype, device=s1.device)
+        g1 = torch.cat([d1[idx].to(s1.dtype), z], dim=0)
+        g2 = torch.cat([d2[idx].to(s2.dtype), z], dim=0)
+        return s1 + g1[inv], s2 + g2[inv]
     paux = getattr(se, _GROUPING_AUX[grouping][3])
     if _pallas_ok(d1, paux, use_pallas) and d1.shape == d2.shape:
         l1, l2 = live_partials_pair(d1, d2, paux)
@@ -177,9 +221,16 @@ def _seg_sum_grouped_pair(d1, d2, se, grouping: str, use_pallas: bool):
 
 def _seg_sum_weighted(wgt, val, H, dk, se, grouping: str, use_pallas: bool,
                       out_dtype):
-    """Segment sum of ``head_expand(wgt) ⊙ val`` over one grouping (the JAX
-    package's ``WEIGHTED_KERNEL = False`` branch: the product is formed in
-    ``out_dtype``, the sum accumulates in f32)."""
+    """Segment sum of ``head_expand(wgt) ⊙ val`` over one grouping. With
+    ``WEIGHTED_KERNEL`` on and the kernel path eligible, the product is
+    formed inside
+    :func:`~pyhgt_tpu_torch.ops.pallas_seg.live_partials_weighted`;
+    otherwise it is formed in ``out_dtype`` and goes through the standard
+    grouped reduction. The sum accumulates in f32 either way."""
+    paux = getattr(se, _GROUPING_AUX[grouping][3])
+    if WEIGHTED_KERNEL and _pallas_ok(val, paux, use_pallas):
+        live = live_partials_weighted(wgt.float(), val, dk, paux)
+        return seg_sum_csr(live, paux.ptr2)
     if out_dtype == torch.bfloat16:
         msg = _head_expand_like(wgt, H, dk, out_dtype) * val.to(out_dtype)
     else:
@@ -277,30 +328,101 @@ def _softmax_tilemax(att, se, K=_TILE):
     return ex / den_e
 
 
+def _softmax_tilemax_auto(att, se, K=_TILE):
+    """Runtime-guarded :func:`_softmax_tilemax`: the tilemax softmax is exact
+    whenever every live logit sits within ~87 of its 128-edge tile's max.
+    One ``[E, H]`` reduction checks the bound (``TILEMAX_SPREAD``) per batch
+    and a violation falls back to the shift-scan softmax.
+
+    The JAX package selects with ``lax.cond``; eager PyTorch reads the flag
+    on the host, which waits for the device once per layer. Computing both
+    softmaxes and selecting would need no wait but would always pay the
+    shift scan that the tilemax form exists to avoid."""
+    E, H = att.shape
+    tiles = E // K
+    a3 = att.reshape(tiles, K, H)
+    m_tile = a3.amax(dim=1, keepdim=True)                  # [tiles, 1, H]
+    live = se.edge_mask.reshape(tiles, K)[:, :, None]
+    bad = (((m_tile - a3) > TILEMAX_SPREAD) & live).any()
+    if bool(bad):
+        return _softmax_tiled(att, se)
+    return _softmax_tilemax(att, se, K)
+
+
+def _softmax_pallas(att, se):
+    """Segment softmax via the online-partials kernel
+    (:func:`~pyhgt_tpu_torch.ops.pallas_seg.segment_softmax_partials`): one
+    pass over ``[E, H]`` emits per-(tile, rank) (max, sumexp) live rows; the
+    level-2 online merge runs on the ~S-row live space."""
+    paux = se.pseg_tgt
+    S = paux.ptr2.shape[0] - 1
+    m_rows, s_rows = segment_softmax_partials(att, paux)
+    key = paux.live_key
+    # dead output rows lie past ptr2[S]: seg_max_csr gives them no segment
+    m_n = seg_max_csr(m_rows, paux.ptr2)                   # [S, H]
+    key_safe = torch.clamp(key, max=S - 1)
+    # online merge: den = sum over live rows of exp(m_row - m_seg) * s_row
+    scale = torch.exp(torch.clamp(m_rows - m_n[key_safe], max=0.0))
+    den_n = seg_sum_csr(scale * s_rows, paux.ptr2)
+    ex = torch.exp(att - m_n[se.edge_tgt]) * se.edge_mask[:, None]
+    den_e = torch.clamp(den_n[se.edge_tgt], min=1e-30)
+    return ex / den_e
+
+
+def _softmax(att, se, softmax_tilemax, softmax_pallas):
+    """The edge stage's segment softmax ``w [E, H]`` f32, routed as the JAX
+    package routes it: the kernel form needs the legacy target aux (its
+    ``live_key``, and no rank cap: ``v == 0``), so on a capped aux
+    ``softmax_pallas`` silently takes the next form; then tilemax
+    (``"auto"``: guarded, any other true value: unguarded); else the
+    shift-scan softmax."""
+    paux = se.pseg_tgt
+    if (softmax_pallas and paux is not None and paux.live_key is not None
+            and not paux.v):
+        return _softmax_pallas(att, se)
+    if softmax_tilemax == "auto":
+        return _softmax_tilemax_auto(att, se)
+    if softmax_tilemax:
+        return _softmax_tilemax(att, se)
+    return _softmax_tiled(att, se)
+
+
 def _edge_fwd_impl(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk,
-                   use_rte, seg_pallas, softmax_tilemax):
+                   use_rte, seg_pallas, softmax_tilemax,
+                   softmax_pallas=False):
     dt = k_rel.dtype
     k_e, v_e = _gather_kv(k_rel, v_rel, k_tab, v_tab, se.gidx, se.tabidx,
                           use_rte)
     q_e = q_n[se.edge_tgt]
     pre, att = _attention(q_e, k_e, pri_e, se.edge_mask, H, dk)
-    if softmax_tilemax:
-        w = _softmax_tilemax(att, se)
-    else:
-        w = _softmax_tiled(att, se)
+    w = _softmax(att, se, softmax_tilemax, softmax_pallas)
     aggr = _seg_sum_weighted(w, v_e, H, dk, se, "tgt", seg_pallas, dt)
     return aggr, w, pre, k_e, v_e
 
 
 def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
-              H, dk, use_rte, seg_pallas):
-    """Scatter-free backward of the edge stage, the JAX package's
-    ``permute`` strategy: g_k_e / g_v_e are formed once in tgt order, each
-    [E, D] tensor is permute-gathered into src order, and the bank
-    gradients are segment sums there. The RTE-table gradients come straight
-    off the src-ordered pair through the tab-window aux when the batch has
-    one; otherwise off a second permute into tab order."""
+              H, dk, use_rte, seg_pallas, edge_bwd="permute"):
+    """Scatter-free backward of the edge stage, in one of the JAX package's
+    four strategies for the src/tab-grouped gradient reductions:
+
+    - ``permute``: g_k_e / g_v_e are formed once in tgt order, each [E, D]
+      tensor is permute-gathered into src order, and the bank gradients are
+      segment sums there. The RTE-table gradients come straight off the
+      src-ordered pair through the tab-window aux when the batch has one;
+      otherwise off a second permute into tab order.
+    - ``slab``: the pair lane-concatenated into one [E, 2D] tensor, so the
+      backward pays ONE row permute and one node-table gather, and
+      :func:`~pyhgt_tpu_torch.ops.pallas_seg.live_partials_slab` sums both
+      halves. Needs ``seg_pallas``, the src aux and D >= 128; else permute.
+    - ``src_direct``: g_k / g_v built natively in src order (the narrow
+      [E, H] coefficients permute, the wide reads are [N, D]-table gathers
+      at ``tgt_src_order``); the tab grouping rides the src-ordered pair
+      through the window aux, or is rebuilt the same way in tab order.
+    - ``recompute``: both groupings rebuilt natively in their own order;
+      no [E, D] permute at all.
+    """
     dt = k_rel.dtype
+    D = q_n.shape[-1]
     mask = se.edge_mask
     if kv is not None:
         k_e, v_e = kv                      # saved: no backward re-gathers
@@ -323,34 +445,85 @@ def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
     # tgt-grouped: g_q_n (k_e is already in tgt order)
     g_q_n = _seg_sum_weighted(coef, k_e, H, dk, se, "tgt", seg_pallas, dt)
 
-    if dt == torch.bfloat16:
-        # bf16-native products (no f32 [E, D] intermediates); q_e / g_msg
-        # are bf16 rows
-        q_e = q_n[se.edge_tgt]
-        g_k_e = _head_expand_like(coef, H, dk, dt) * q_e
-        g_v_e = _head_expand_like(w, H, dk, dt) * g_msg
-    else:
-        q_e = q_n[se.edge_tgt].float()
-        g_k_e = (_head_expand(coef, H, dk) * q_e).to(dt)
-        g_v_e = (_head_expand(w, H, dk) * g_msg.float()).to(dt)
-    gk_src = g_k_e[se.perm_src]
-    gv_src = g_v_e[se.perm_src]
-    g_k_rel, g_v_rel = _seg_sum_grouped_pair(gk_src, gv_src, se, "src",
-                                             seg_pallas)
+    def grads_in_order(perm, tgt_order):
+        """g_k (= coef ⊙ q_tgt) and g_v (= w ⊙ g_aggr_tgt) rebuilt natively
+        in one grouping's edge order: narrow [E, H] permutes, head-expanded
+        to lanes, times rows gathered from the node-sized tables."""
+        coef_o = _head_expand(coef[perm], H, dk)
+        w_o = _head_expand(w[perm], H, dk)
+        q_o = q_n.to(dt)[tgt_order].float()
+        gm_o = g_aggr_l[tgt_order].float()
+        return (coef_o * q_o).to(dt), (w_o * gm_o).to(dt)
+
     g_k_tab = g_v_tab = None
-    if use_rte:
-        ptab = se.ptab_src
-        if _pallas_ok(gk_src, ptab, seg_pallas):
-            # tab-window kernel: blocks are contiguous in src order, so
-            # (block, Δt) fits a two-block window and the two [E, D] tab
-            # permutes vanish
-            l1, l2 = live_partials_pair(gk_src, gv_src, ptab)
-            g_k_tab = seg_sum_csr(l1, ptab.ptr2)
-            g_v_tab = seg_sum_csr(l2, ptab.ptr2)
-        else:
+    paux_src = se.pseg_src
+    if edge_bwd == "recompute":
+        g_k_rel, g_v_rel = _seg_sum_grouped_pair(
+            *grads_in_order(se.perm_src, se.tgt_src_order), se, "src",
+            seg_pallas)
+        if use_rte:
             g_k_tab, g_v_tab = _seg_sum_grouped_pair(
-                g_k_e[se.perm_tab], g_v_e[se.perm_tab], se, "tab",
+                *grads_in_order(se.perm_tab, se.tgt_tab_order), se, "tab",
                 seg_pallas)
+    elif (edge_bwd == "slab" and seg_pallas and paux_src is not None
+            and D >= 128):
+        table = torch.cat([q_n.to(dt), g_aggr_l], dim=1)
+        qgm = table[se.edge_tgt].float()                   # [E, 2D]
+        # [coef | w] expanded per head: the JAX package's one block-diagonal
+        # matmul (_head_mat2) is the same repeat over 2H columns
+        cw_exp = _head_expand(torch.cat([coef, w], dim=1), 2 * H, dk)
+        g_kv_e = (cw_exp * qgm).to(dt)                     # [E, 2D]
+        g_kv_src = g_kv_e[se.perm_src]                     # 1 permute
+        l1, l2 = live_partials_slab(g_kv_src, paux_src)
+        g_k_rel = seg_sum_csr(l1, paux_src.ptr2)
+        g_v_rel = seg_sum_csr(l2, paux_src.ptr2)
+        if use_rte:
+            ptab = se.ptab_src
+            if ptab is not None:
+                t1, t2 = live_partials_slab(g_kv_src, ptab)
+            else:
+                ptab = se.pseg_tab
+                t1, t2 = live_partials_slab(g_kv_e[se.perm_tab], ptab)
+            g_k_tab = seg_sum_csr(t1, ptab.ptr2)
+            g_v_tab = seg_sum_csr(t2, ptab.ptr2)
+    else:
+        src_direct = edge_bwd == "src_direct"
+        if src_direct:
+            gk_src, gv_src = grads_in_order(se.perm_src, se.tgt_src_order)
+        else:
+            if dt == torch.bfloat16:
+                # bf16-native products (no f32 [E, D] intermediates); q_e /
+                # g_msg are bf16 rows
+                q_e = q_n[se.edge_tgt]
+                g_k_e = _head_expand_like(coef, H, dk, dt) * q_e
+                g_v_e = _head_expand_like(w, H, dk, dt) * g_msg
+            else:
+                q_e = q_n[se.edge_tgt].float()
+                g_k_e = (_head_expand(coef, H, dk) * q_e).to(dt)
+                g_v_e = (_head_expand(w, H, dk) * g_msg.float()).to(dt)
+            gk_src = g_k_e[se.perm_src]
+            gv_src = g_v_e[se.perm_src]
+        g_k_rel, g_v_rel = _seg_sum_grouped_pair(gk_src, gv_src, se, "src",
+                                                 seg_pallas)
+        if use_rte:
+            ptab = se.ptab_src
+            if _pallas_ok(gk_src, ptab, seg_pallas):
+                # tab-window kernel: blocks are contiguous in src order, so
+                # (block, Δt) fits a two-block window and the two [E, D] tab
+                # permutes vanish
+                l1, l2 = live_partials_pair(gk_src, gv_src, ptab)
+                g_k_tab = seg_sum_csr(l1, ptab.ptr2)
+                g_v_tab = seg_sum_csr(l2, ptab.ptr2)
+            elif src_direct:
+                # no window aux: rebuild the pair natively in tab order
+                g_k_tab, g_v_tab = _seg_sum_grouped_pair(
+                    *grads_in_order(se.perm_tab, se.tgt_tab_order), se,
+                    "tab", seg_pallas)
+            else:
+                g_k_tab, g_v_tab = _seg_sum_grouped_pair(
+                    g_k_e[se.perm_tab], g_v_e[se.perm_tab], se, "tab",
+                    seg_pallas)
+    if use_rte:
         g_k_tab = g_k_tab.to(k_tab.dtype)
         g_v_tab = g_v_tab.to(v_tab.dtype)
     return (g_q_n.to(q_n.dtype), g_k_rel.to(k_rel.dtype),
@@ -365,10 +538,11 @@ class _EdgeStage(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims):
-        H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax = dims
+        (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax,
+         softmax_pallas, _) = dims
         aggr, w, pre, k_e, v_e = _edge_fwd_impl(
             q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk, use_rte,
-            seg_pallas, softmax_tilemax)
+            seg_pallas, softmax_tilemax, softmax_pallas)
         if any(ctx.needs_input_grad):
             # `pre` ([E, H], the prior-less logits) rides along so the
             # backward never re-gathers q_e for it
@@ -380,29 +554,47 @@ class _EdgeStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_aggr):
-        H, dk, use_rte, _, seg_pallas, _ = ctx.dims
+        H, dk, use_rte, _, seg_pallas, _, _, edge_bwd = ctx.dims
         q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, *kv = ctx.saved_tensors
         if ctx.se.perm_src is None:
             raise ValueError("the backward needs a batch sorted with "
                              "with_backward=True")
         grads = _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w,
                           pre, tuple(kv) or None, ctx.se, H, dk, use_rte,
-                          seg_pallas)
+                          seg_pallas, edge_bwd)
         return (*grads, None, None)
 
 
 def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
                    use_rte, save_kv=False, seg_pallas=False,
-                   softmax_tilemax=False):
+                   softmax_tilemax=False, softmax_pallas=False,
+                   edge_bwd="permute"):
     """The edge stage: returns ``aggr [N, D]`` (f32). Inputs as in the JAX
     package's ``hgt_edge_stage``: ``q_n [N, D]`` target queries,
     ``k_rel/v_rel [B*C, D]`` relation-transformed banks, ``k_tab/v_tab``
     RTE tables (``None`` without RTE), ``pri_e [E, H]``. Differentiable in
-    the six tensors through :func:`_edge_bwd`; ``save_kv`` keeps the
-    gathered ``k_e``/``v_e`` for it (2 E×D buffers for 2 fewer backward
-    gathers). Under ``torch.no_grad()`` nothing is kept."""
-    dims = (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax)
+    the six tensors through :func:`_edge_bwd` in the strategy ``edge_bwd``;
+    ``save_kv`` keeps the gathered ``k_e``/``v_e`` for it (2 E×D buffers for
+    2 fewer backward gathers). ``softmax_tilemax`` (False | True | "auto")
+    and ``softmax_pallas`` choose the softmax form (:func:`_softmax`). Under
+    ``torch.no_grad()`` nothing is kept."""
+    if edge_bwd not in EDGE_BWD:
+        raise ValueError(f"edge_bwd {edge_bwd!r} not in {EDGE_BWD}")
+    dims = (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax,
+            softmax_pallas, edge_bwd)
     return _EdgeStage.apply(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims)
+
+
+def hgt_edge_attention(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
+                       use_rte, seg_pallas=False, softmax_tilemax=False,
+                       softmax_pallas=False):
+    """The ``[E, H]`` softmax attention weights of the edge stage, in the
+    sorted edge order (the reference stashes them on the module for
+    visualization, ``pyHGT/conv.py:106-108``). Not differentiated."""
+    with torch.no_grad():
+        return _edge_fwd_impl(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H,
+                              dk, use_rte, seg_pallas, softmax_tilemax,
+                              softmax_pallas)[1]
 
 
 def _tab_select(k_tab, v_tab, tab_sel):
@@ -429,20 +621,26 @@ def hgt_conv_core_sorted(
     edge_dtype=None,   # e.g. torch.bfloat16: run the per-edge stage in bf16
     seg_pallas: bool = False,
     softmax_tilemax=False,
+    softmax_pallas: bool = False,
+    edge_bwd: str = "permute",
+    return_attention: bool = False,
 ):
     """Attention + message aggregation over the target-sorted layout.
     Returns aggr ``[T, C, Dout]`` in ``x.dtype``. Everything around the edge
     stage is plain tensor code that autograd differentiates; the edge stage
-    brings its own backward (:func:`hgt_edge_stage`). ``save_kv`` trades 2
-    E×D saved buffers for 2 fewer backward gathers.
+    brings its own backward (:func:`hgt_edge_stage`) in the strategy
+    ``edge_bwd`` (permute | recompute | src_direct | slab). ``save_kv``
+    trades 2 E×D saved buffers for 2 fewer backward gathers.
 
     ``edge_dtype=torch.bfloat16`` casts the gathered tables and every
     per-edge ``[E, D]`` tensor to bf16 while logits, softmax and all segment
     accumulations stay f32. ``softmax_tilemax`` selects the per-tile-max
-    softmax (``"on"``/True); the runtime-guarded ``"auto"`` form is not
-    ported yet."""
-    if softmax_tilemax == "auto":
-        raise NotImplementedError("softmax_tilemax='auto' is not ported yet")
+    softmax: any true value the unguarded form, ``"auto"`` the form that
+    checks the logit spread per batch and falls back to the shift-scan
+    softmax. ``softmax_pallas`` routes the softmax through the
+    online-partials kernel where the target aux allows it
+    (:func:`_softmax`). ``return_attention`` also returns the ``[E, H]``
+    softmax weights the edge stage used, in sorted edge order."""
     T, C, Din = x.shape
     Dout = wq.shape[-1]
     H, dk = n_heads, Dout // n_heads
@@ -478,9 +676,18 @@ def hgt_conv_core_sorted(
             k_tab = k_tab.to(edge_dtype)
             v_tab = v_tab.to(edge_dtype)
 
+    tilemax = "auto" if softmax_tilemax == "auto" else bool(softmax_tilemax)
     aggr = hgt_edge_stage(
         q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
         use_rte=use_rte, save_kv=save_kv, seg_pallas=seg_pallas,
-        softmax_tilemax=bool(softmax_tilemax),
+        softmax_tilemax=tilemax, softmax_pallas=softmax_pallas,
+        edge_bwd=edge_bwd,
     )
-    return aggr.reshape(T, C, Dout).to(x.dtype)
+    out = aggr.reshape(T, C, Dout).to(x.dtype)
+    if return_attention:
+        w = hgt_edge_attention(
+            q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
+            use_rte=use_rte, seg_pallas=seg_pallas, softmax_tilemax=tilemax,
+            softmax_pallas=softmax_pallas)
+        return out, w
+    return out

@@ -1,8 +1,7 @@
 """Target-sorted edge view — the host layout of the scatter-free edge stage.
 
 Counterpart of the numpy path of :mod:`pyhgt_tpu.sampling.sorted_batch`
-(its ``sort_edges(native=False)``), as far as the flagship's forward and
-its permute-strategy backward read it; every field here is bit-identical to
+(its ``sort_edges(native=False)``); every field here is bit-identical to
 the JAX package's. At batch-build time the host precomputes:
 
 - edges permuted so ``edge_tgt`` is globally non-decreasing (padding last);
@@ -19,10 +18,13 @@ the JAX package's. At batch-build time the host precomputes:
   sorting edges by ``gidx`` and a third, ``perm_tab``, by ``tabidx``, each
   with its tiled aux and kernel aux, so the K/V gather transposes become
   sorted segment sums; and ``ptab_src``, the window aux that reduces the
-  tab grouping straight off src-ordered rows.
+  tab grouping straight off src-ordered rows;
+- optionally two narrower forms of the src grouping's kernel aux: the
+  singleton-split aux (``src_rank_cap``: degree-1 sources bypass the kernel)
+  and the two-region aux (``src_split_cap``: the meta blocks through a
+  rank-capped aux, the self-block tail through a plain CSR).
 
-The src split/multi aux (``src_rank_cap``, ``src_split_cap``) and the C++
-batch-prep path are not ported yet.
+The C++ batch-prep path is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pyhgt_tpu_torch.graph.schema import SELF_REL
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
 from pyhgt_tpu_torch.ops.pallas_seg import PK, PW, PallasSegAux
 from pyhgt_tpu_torch.ops.rte import RTE_MAX_LEN
@@ -89,6 +92,23 @@ class SortedEdges:
     # [E, D] tab permutes in the backward); None when a tile spans more than
     # two meta blocks (tiny layouts) — callers fall back to pseg_tab
     ptab_src: Optional[PallasSegAux] = None
+    # singleton-split src aux (src_rank_cap): multi-edge segments through a
+    # rank-capped kernel aux whose dead rows (loc = -1) are the degree-1
+    # segments' edges, which a pure gather adds back; see
+    # pallas_seg_aux_split. None when the caps don't hold.
+    pseg_src_multi: Optional[PallasSegAux] = None
+    src_single_edges: Optional[np.ndarray] = None   # [cap] src-order idx
+    src_single_inv: Optional[np.ndarray] = None     # [G] -> row in G/zero
+    # two-region src reduction (src_split_cap): the src-sorted edge array
+    # splits at the STATIC meta/self block boundary (self blocks sort last
+    # and hold one edge per node). Region 1 (meta blocks) runs the
+    # rank-capped kernel aux; region 2 (the self tail) needs no kernel: a
+    # plain CSR over its rows. None / 0 when the boundary or the cap does
+    # not hold.
+    pseg_src_lo: Optional[PallasSegAux] = None      # region-1 capped aux
+    src_tail_ptr2: Optional[np.ndarray] = None      # [G - S1 + 1]
+    src_cut: int = 0                                # edges in region 1
+    src_s1: int = 0                                 # segments in region 1
 
     def to(self, device) -> "SortedEdges":
         """Tensors on ``device``: indices int32 (as built: half the bytes of
@@ -96,8 +116,10 @@ class SortedEdges:
         :meth:`PallasSegAux.to` gives it. Fields that are ``None`` stay
         ``None``; a view already made of tensors moves with ``Tensor.to``."""
         def move(a):
-            if a is None or isinstance(a, PallasSegAux):
-                return a if a is None else a.to(device)
+            if a is None or isinstance(a, int):
+                return a
+            if isinstance(a, PallasSegAux):
+                return a.to(device)
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             if a.dtype == np.bool_ or a.dtype == np.float32:
@@ -153,6 +175,112 @@ def pallas_seg_aux(key_sorted: np.ndarray, num_segments: int,
     live_key_ext[: len(pos)] = live_key
     return PallasSegAux(loc=loc, blk=blk_ext, ptr2=ptr2,
                         live_key=live_key_ext, w=W, v=v)
+
+
+def pallas_seg_aux_split(key_sorted: np.ndarray, num_segments: int,
+                         K: int = PK, W: int = PW, v: int = 0,
+                         single_cap: int = 0):
+    """Singleton-split aux: degree-1 segments bypass the kernel.
+
+    In the SRC grouping, runs of degree-1 sources make per-tile distinct
+    counts reach K (no rank cap possible on the full space), but a singleton
+    segment's "sum" is just its one edge row. This constructor numbers ranks
+    over MULTI-edge segments only (singleton edges, and rows before a
+    tile's first multi segment, get the dead ``loc = -1``; the aux is marked
+    ``dead_rows`` and the kernels skip them) and returns the singleton
+    routing for a pure-gather combine:
+
+        bank = seg_sum_csr(kernel_partials, ptr2) + G_ext[single_inv]
+        where G = data_in_grouping_order[single_edges]  (+ a zero row)
+
+    Returns ``(aux, single_edges [single_cap], single_inv [S])`` or ``None``
+    when the multi-rank cap ``v`` or ``single_cap`` is violated (the caller
+    falls back to the legacy aux).
+    """
+    E = key_sorted.shape[0]
+    if E % K:
+        raise ValueError(f"edge count {E} not a multiple of the {K} tile")
+    if not (v and single_cap):
+        raise ValueError("split aux needs both caps")
+    if W < v:
+        raise ValueError(f"W = {W} < V = {v}")
+    tiles = E // K
+    key = np.asarray(key_sorted)
+    new = np.ones(E, dtype=bool)
+    new[1:] = key[1:] != key[:-1]
+    seg_start = np.flatnonzero(new)
+    seg_len = np.diff(np.append(seg_start, E))
+    is_single_seg = seg_len == 1
+    seg_of_edge = np.cumsum(new) - 1
+    single_edge = is_single_seg[seg_of_edge]          # [E] bool
+    n_single = int(is_single_seg.sum())
+    if n_single > single_cap:
+        return None
+
+    # multi-only ranks per tile
+    new2 = new.reshape(tiles, K).copy()
+    new2[:, 0] = True  # a segment continuing across a tile gets a new rank
+    multi_new = new2 & ~single_edge.reshape(tiles, K)
+    rank = np.cumsum(multi_new, axis=1) - 1           # [tiles, K]
+    n_live = multi_new.sum(axis=1)
+    if int(n_live.max()) > v:
+        return None
+    live_off = np.concatenate([[0], np.cumsum(n_live)])
+    loc = ((live_off[:-1] % W)[:, None] + rank).astype(np.int32)
+    # rows before the tile's first multi segment have rank -1
+    loc[~multi_new & ~np.cumsum(multi_new, axis=1).astype(bool)] = -1
+    loc[single_edge.reshape(tiles, K)] = -1           # dead rows
+    blk = (live_off[:-1] // W).astype(np.int32)
+    NB = (num_segments + tiles + W - 1) // W + 1
+    tail = np.minimum(blk[-1] + 1 + np.arange(NB - 1), NB - 1)
+    blk_ext = np.concatenate([blk, tail]).astype(np.int32)
+
+    pos = np.flatnonzero(multi_new.reshape(E))        # first edge per live row
+    live_key = key[pos]
+    ptr2 = np.searchsorted(live_key, np.arange(num_segments + 1)).astype(
+        np.int32
+    )
+    live_key_ext = np.full(NB * W, num_segments, dtype=np.int32)
+    live_key_ext[: len(pos)] = live_key
+    aux = PallasSegAux(loc=loc, blk=blk_ext, ptr2=ptr2,
+                       live_key=live_key_ext, w=W, v=v, dead_rows=True)
+
+    single_edges = np.zeros(single_cap, np.int32)
+    se_idx = seg_start[is_single_seg]                 # the segment's one edge
+    single_edges[:n_single] = se_idx
+    single_inv = np.full(num_segments, single_cap, np.int32)  # -> zero row
+    single_rows = key[se_idx]
+    positions = np.arange(n_single)
+    keep = single_rows < num_segments                 # drop padding sentinel
+    single_inv[single_rows[keep]] = positions[keep].astype(np.int32)
+    return aux, single_edges, single_inv
+
+
+def _src_split_aux(key_src_sorted: np.ndarray, cut: int, s1: int,
+                   seg_ptr_src: np.ndarray, K: int, cap: int):
+    """Region auxes for the two-region src reduction.
+
+    ``cut`` (edge index) / ``s1`` (segment index) mark the static meta/self
+    boundary in src order: every edge < cut must carry a key < s1 and every
+    edge >= cut a key >= s1 (the masked-edge convention makes per-block
+    counts static, so this holds whenever the layout's meta capacities are
+    tile-aligned). Returns ``(aux_lo, tail_ptr2)`` or ``(None, None)`` when
+    the boundary or the region-1 rank cap doesn't hold (the caller falls
+    back to the single-call aux). Region 1's aux has W = 2*cap, V = cap.
+    """
+    key = np.asarray(key_src_sorted, np.int64)
+    E = key.shape[0]
+    if not (0 < cut < E) or cut % K:
+        return None, None
+    if key[cut - 1] >= s1 or key[cut] < s1:
+        return None, None
+    aux_lo = pallas_seg_aux(key[:cut], s1, K, 2 * cap, v=cap)
+    if aux_lo is None:
+        return None, None
+    tail_ptr2 = (np.asarray(seg_ptr_src[s1:], np.int64) - cut).astype(
+        np.int32
+    )
+    return aux_lo, tail_ptr2
 
 
 def pallas_tab_window_aux(
@@ -293,22 +421,37 @@ def sort_edges(
     tgt_rank_cap: int = 0,
     tab_cap: int = 0,
     with_backward: bool = True,
+    pk: Optional[int] = None,
+    pw: Optional[int] = None,
+    src_rank_cap: int = 0,
+    src_split_cap: int = 0,
 ) -> SortedEdges:
-    """Sort a batch's flat edge arrays by target and build the aux, with the
-    kernel aux's tile K = ``PK`` and block W = ``PW``.
+    """Sort a batch's flat edge arrays by target and build the aux.
     ``with_backward=False`` leaves out the src/tab groupings that only the
     backward reads (a serving request sorts once and never differentiates).
+
+    ``pk``/``pw`` override the kernel aux's tile K and output block W
+    (default: the module constants ``PK``/``PW``; ``pw`` defaults to
+    ``pk``; ``pk`` must be a multiple of ``REDUCE_TILE``).
 
     ``tgt_rank_cap`` builds the target aux with W = V = cap when every tile
     holds at most ``cap`` segments, else the legacy W = K aux. ``tab_cap``
     compacts the RTE table space when every block occupies at most ``cap``
-    Δt slots.
+    Δt slots. ``src_rank_cap`` adds the singleton-split src aux
+    (:func:`pallas_seg_aux_split`, W = V = cap) and ``src_split_cap`` the
+    two-region src aux (:func:`_src_split_aux`); each stays ``None`` when
+    its cap does not hold for the batch.
 
     Masked edges keep their OWN meta-block's last slot in ``gidx`` /
     ``tabidx`` instead of a global sentinel (the JAX package's convention:
     it keeps its source/tab-order aux layout-static); their rows are zero,
     so sums are unchanged.
     """
+    K = pk or PK
+    W = pw or (pk or PW)
+    if K % REDUCE_TILE:
+        raise ValueError(f"kernel tile {K} is not a multiple of the "
+                         f"{REDUCE_TILE} reduction tile")
     em = em or EdgeStaticMeta.from_layout(layout)
     T, C = layout.num_types, layout.node_cap
     N = T * C
@@ -336,7 +479,7 @@ def sort_edges(
 
     # pad the flat edge axis to the kernel tile (extra edges are masked and
     # sort last, so every downstream pointer stays correct)
-    padn = (-E) % PK
+    padn = (-E) % K
     if padn:
         src = np.concatenate([src, np.zeros(padn, src.dtype)])
         tgt = np.concatenate([tgt, np.zeros(padn, tgt.dtype)])
@@ -370,16 +513,28 @@ def sort_edges(
 
     bwd = {}
     if with_backward:
+        src_cut = src_s1 = 0
+        if src_split_cap:
+            # static meta/self boundary in src order (per-block counts are
+            # static by the masked-edge convention; self blocks come last
+            # in GraphSchema.build_blocks). Valid only when the meta
+            # capacities happen to be tile-aligned: _src_split_aux checks.
+            meta = [b for b in layout.blocks if b.meta.rel != SELF_REL]
+            src_cut = sum(b.cap for b in meta)
+            src_s1 = len(meta) * C
         bwd = _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab,
-                            B=B, C=C, Lt=Lt)
+                            B=B, C=C, Lt=Lt, K=K, W=W,
+                            src_rank_cap=src_rank_cap,
+                            src_split_cap=src_split_cap, src_cut=src_cut,
+                            src_s1=src_s1)
 
     tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = _tiled_aux(key, N)
     key64 = key.astype(np.int64)
     pseg_tgt = None
     if tgt_rank_cap:
-        pseg_tgt = pallas_seg_aux(key64, N, PK, tgt_rank_cap, v=tgt_rank_cap)
+        pseg_tgt = pallas_seg_aux(key64, N, K, tgt_rank_cap, v=tgt_rank_cap)
     if pseg_tgt is None:
-        pseg_tgt = pallas_seg_aux(key64, N, PK, PW)
+        pseg_tgt = pallas_seg_aux(key64, N, K, W)
 
     return SortedEdges(
         edge_src=src.astype(np.int32),
@@ -399,15 +554,18 @@ def sort_edges(
     )
 
 
-def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt):
+def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt,
+                  K=PK, W=PW, src_rank_cap=0, src_split_cap=0, src_cut=0,
+                  src_s1=0):
     """The SortedEdges fields only the backward reads: the src (``gidx``)
     and tab (``tabidx``, already compacted to ``Lt`` slots per block)
     groupings' CSR pointers, tiled aux and kernel aux (legacy width: src
     tiles of degree-1 sources reach K distinct segments, so no rank cap
-    holds there), and the tab-window aux over src-ordered rows. The masked
-    edges' own-block indexing keeps the src-order block boundaries equal to
-    the static per-block capacities, which is what lets the window aux
-    build."""
+    holds there), the tab-window aux over src-ordered rows, and, when their
+    caps are given and hold, the singleton-split and two-region src aux.
+    The masked edges' own-block indexing keeps the src-order block
+    boundaries equal to the static per-block capacities, which is what lets
+    the window aux and the two-region boundary build."""
     key_src_sorted = gidx.astype(np.int64)[perm_src]
     key_tab_sorted = tabidx.astype(np.int64)[perm_tab]
     seg_ptr_src = np.searchsorted(
@@ -419,14 +577,30 @@ def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt):
     # the window's only W constraint is W >= Lt (its blocks are META blocks,
     # which advance by at most one per tile whatever W is)
     W_tab = ((Lt + 7) // 8) * 8
+    pseg_src_lo = src_tail_ptr2 = None
+    if src_split_cap and src_cut and src_s1:
+        pseg_src_lo, src_tail_ptr2 = _src_split_aux(
+            key_src_sorted, src_cut, src_s1, seg_ptr_src, K, src_split_cap)
+    if pseg_src_lo is None:
+        src_cut = src_s1 = 0
+    pseg_src_multi = src_single_edges = src_single_inv = None
+    if src_rank_cap:
+        split = pallas_seg_aux_split(
+            key_src_sorted, B * C, K, src_rank_cap, v=src_rank_cap,
+            single_cap=max(len(gidx) // 8, src_rank_cap))
+        if split is not None:
+            pseg_src_multi, src_single_edges, src_single_inv = split
     return dict(
         perm_src=perm_src, seg_ptr_src=seg_ptr_src,
         perm_tab=perm_tab, seg_ptr_tab=seg_ptr_tab,
         tgt_src_order=safe_tgt[perm_src], tgt_tab_order=safe_tgt[perm_tab],
         tl_src=tl_src, live_idx_src=li_src, seg_ptr2_src=sp2_src,
         tl_tab=tl_tab, live_idx_tab=li_tab, seg_ptr2_tab=sp2_tab,
-        pseg_src=pallas_seg_aux(key_src_sorted, B * C, PK, PW),
-        pseg_tab=pallas_seg_aux(key_tab_sorted, B * Lt, PK, PW),
-        ptab_src=(pallas_tab_window_aux(tabidx[perm_src], B, Lt, PK, W_tab)
-                  if PK >= Lt else None),
+        pseg_src=pallas_seg_aux(key_src_sorted, B * C, K, W),
+        pseg_tab=pallas_seg_aux(key_tab_sorted, B * Lt, K, W),
+        ptab_src=(pallas_tab_window_aux(tabidx[perm_src], B, Lt, K, W_tab)
+                  if K >= Lt else None),
+        pseg_src_multi=pseg_src_multi, src_single_edges=src_single_edges,
+        src_single_inv=src_single_inv, pseg_src_lo=pseg_src_lo,
+        src_tail_ptr2=src_tail_ptr2, src_cut=src_cut, src_s1=src_s1,
     )
