@@ -16,9 +16,12 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
    with dead rows; ``live_partials_slab`` on the src runs aux and the
    tab-window aux; ``live_partials_weighted`` on the capped and legacy
    target aux and a singleton-split aux; ``head_sum_product``; ``segment_softmax_partials`` on the
-   legacy target aux with the batch's masked rows at -1e30;
+   legacy target aux with the batch's masked rows at -1e30, on outputs
+   whose memory held NaN (tail rows exactly 0, two calls bit-identical);
 3. time each kernel, its plain version and the PyTorch calls that compute
-   the same function, beside the card's bound for the work;
+   the same function, beside the card's bound for the work (the softmax
+   kernel and its yardstick also as device time: 8 calls on 8 copies of the
+   logits in one CUDA graph, cold L2);
 4. serve: answer 3 requests (synthetic batch -> host sort -> forward ->
    argmax over the 128 seeds, as ``OgbnPredictor.predict`` does per chunk),
    counting kernel launches;
@@ -46,13 +49,14 @@ Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``. ``--profile`` also prints
 the top CUDA ops of one forward, of one train step, of one step under
-``edge_bwd="slab"`` and of one forward under ``softmax_pallas`` by device
-time (torch.profiler).
+``edge_bwd="slab"``, of one forward under ``softmax_pallas`` and of one
+``segment_softmax_partials`` call by device time (torch.profiler).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import time
@@ -151,9 +155,28 @@ def scaled(per_unit, n):
     return {k: per_unit.get(k, 0) * n for k in NO_LAUNCH}
 
 
+# the softmax kernel built with -DSOFTMAX_PARTIALS_FLOOR=1 (its walk left
+# out: the same launch, loads and stores) and =2 (a launch that returns at
+# once), outputs meaningless; timed beside the kernel as the floors that its
+# loads and stores, and its launch, set
+FLOOR_LIBS = {level: cuda_build.BUILD_DIR
+              / f"segment_softmax_partials_floor{level}.so" for level in (1, 2)}
+
+
 def phase_build():
     t0 = time.perf_counter()
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    floors = [subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+         f"-DSOFTMAX_PARTIALS_FLOOR={level}", "-o", str(path),
+         str(cuda_build.CSRC / "segment_softmax_partials.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for level, path in FLOOR_LIBS.items()]
     paths = cuda_build.build(ps.KERNEL_SOURCES)
+    for proc in floors:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"softmax floor build failed:\n{out}")
     log(f"[build] {len(paths)} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.BUILD_LOG.items():
@@ -477,12 +500,61 @@ def phase_head_sum_kernel(fl, dev):
                   "package calls this function")
 
 
+def graph_ms(fns, replays=20):
+    """Device time per call of the ``fns``, captured in turn into one CUDA
+    graph and replayed ``replays`` times between CUDA events: no Python or
+    launch gaps of the host between the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up off the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outs
+    return start.elapsed_time(end) / (replays * len(fns))
+
+
+# copies of the logits a cold timing cycles through: 8 x 7.25 MB at bench
+# shapes, more than the card's 50 MB L2, so each call reads from memory
+COLD_COPIES = 8
+
+
+def poisoned_softmax(att, gaux):
+    """The softmax wrapper on memory that held NaN: two NaN tensors of the
+    outputs' size are made and freed just before, so the caching allocator
+    hands that memory to the wrapper's torch.empty."""
+    shape = (gaux.num_blocks * gaux.w, att.shape[1])
+    bait = [torch.full(shape, float("nan"), device=att.device)
+            for _ in range(2)]
+    ptrs = [b.data_ptr() for b in bait]
+    del bait
+    m, s = ps.segment_softmax_partials(att, gaux)
+    if [m.data_ptr(), s.data_ptr()] != ptrs:
+        raise AssertionError("the softmax outputs did not land on NaN memory")
+    return m, s
+
+
 def phase_softmax_kernel(fl, dev, batch):
     """segment_softmax_partials against its plain version on the legacy
     target aux of the bench batch, logits [E, 8] f32 with the batch's masked
-    rows at -1e30. The emitted max (the bf16 rounding of each slice's max)
-    must be bit-equal; the sums add the same f32 exps in another order, with
-    expf against torch.exp: 1e-5 relative."""
+    rows at -1e30, on outputs whose memory held NaN. The emitted max (the
+    bf16 rounding of each slice's max) must be bit-equal; the sums add the
+    same f32 exps in another order, with ex2.approx against torch.exp: 1e-5
+    relative. The tail rows no slice reaches must be exactly 0. Timed as a
+    device time (``COLD_COPIES`` calls on their own copies of the logits in
+    one CUDA graph: cold L2, no host gaps), beside the same launch without
+    its walk and returning at once, and as the eager wrapper."""
     se = sort_batch(batch, fl.layout, fl.em, with_backward=False)
     aux = se.pseg_tgt
     if aux.v or aux.w != ps.PK or aux.live_key is None:
@@ -493,43 +565,110 @@ def phase_softmax_kernel(fl, dev, batch):
     att = torch.randn(aux.loc.size, H, generator=gen, device=dev) * 4
     mask = torch.as_tensor(se.edge_mask, device=dev)
     att = torch.where(mask[:, None], att, torch.full_like(att, -1e30))
-    m, s = ps.segment_softmax_partials(att, gaux)
+    m, s = poisoned_softmax(att, gaux)
     pm, psum = ps.segment_softmax_partials_plain(att, gaux)
     torch.cuda.synchronize()
     m_equal = bool(torch.equal(m, pm))
     diff = (s - psum).abs()
     err = diff.max().item()
     ok = m_equal and bool((diff <= 1e-5 * psum.abs()).all())
+    n_tiles, K = aux.loc.shape
+    live = int(aux.blk[n_tiles - 1]) * aux.w + int(aux.loc[-1, -1]) + 1
+    tail_zero = not (m[live:].any() or s[live:].any())
+    m2, s2 = poisoned_softmax(att, gaux)
+    same_bits = bool(torch.equal(m2, m) and torch.equal(s2, s))
     log(f"[kernel] segment_softmax_partials legacy W={aux.w} att "
         f"{tuple(att.shape)} ({int((~mask).sum())} masked rows) -> 2 x "
-        f"{tuple(m.shape)}: max bit-equal {m_equal}, sums max_abs_err "
-        f"{err:.3e} (tol 1e-5 x |value|, max |value| "
-        f"{psum.max().item():.1f}) {'ok' if ok else 'FAIL'}")
-    if not ok or not bool(torch.isfinite(m).all()):
+        f"{tuple(m.shape)} on NaN-filled torch.empty memory: max bit-equal "
+        f"{m_equal}, sums max_abs_err {err:.3e} (tol 1e-5 x |value|, max "
+        f"|value| {psum.max().item():.1f}), tail rows [{live}, {m.shape[0]}) "
+        f"all 0 {tail_zero}, second call bit-identical {same_bits} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not (ok and tail_zero and same_bits and live < m.shape[0]
+            and bool(torch.isfinite(m).all())):
         raise AssertionError("segment_softmax_partials disagrees with its "
                              "plain version")
+    lib = cuda_build.load("segment_softmax_partials")
+    window = gaux.w + (gaux.v or K)
+    lib.segment_softmax_partials_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    blocks = lib.segment_softmax_partials_blocks_per_sm(K, H, window)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = -(-n_tiles // (blocks * sms)) if blocks > 0 else 0
+    log(f"[kernel] segment_softmax_partials: 256 threads and "
+        f"{ps._softmax_smem_bytes(K, H, window)} bytes of shared memory a "
+        f"block, {blocks} blocks resident per SM x {sms} SMs for {n_tiles} "
+        f"tiles: {waves} wave(s)")
+
     rows = out_rows(gaux)
     idx = rows[:, None].expand(-1, H)
-    ex = torch.exp(torch.clamp(att - pm[rows], max=80.0))
+    copies = [att.clone() for _ in range(COLD_COPIES)]
+    exps = [torch.exp(torch.clamp(a - pm[rows], max=80.0)) for a in copies]
     zeros = torch.zeros_like(pm)
-    ms = cuda_ms(lambda: ps.segment_softmax_partials(att, gaux))
-    plain_ms = cuda_ms(lambda: ps.segment_softmax_partials_plain(att, gaux))
+
+    def library(a, ex):
+        return (torch.scatter_reduce(zeros, 0, idx, a, "amax",
+                                     include_self=False),
+                torch.index_add(zeros, 0, rows, ex))
+
+    ms = graph_ms([lambda a=a: ps.segment_softmax_partials(a, gaux)
+                   for a in copies])
     # no single PyTorch call: the yardstick is the two reductions alone, a
     # scatter-max of the logits and an index_add of exps computed ahead
-    library_ms = cuda_ms(lambda: (
-        torch.scatter_reduce(zeros, 0, idx, att, "amax", include_self=False),
-        torch.index_add(zeros, 0, rows, ex)))
+    library_ms = graph_ms([lambda a=a, ex=ex: library(a, ex)
+                           for a, ex in zip(copies, exps)])
+    n_out = gaux.num_blocks * gaux.w
+
+    def floor_ms(level, inputs=copies):
+        fn = ctypes.CDLL(str(FLOOR_LIBS[level])).segment_softmax_partials_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_void_p]
+
+        def floor(a):
+            fm, fs = torch.empty_like(m), torch.empty_like(s)
+            if fn(a.data_ptr(), gaux.loc.data_ptr(), gaux.blk.data_ptr(),
+                  fm.data_ptr(), fs.data_ptr(), n_tiles, K, H, gaux.w, window,
+                  n_out, torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("softmax floor launch failed")
+            return fm, fs
+        return graph_ms([lambda a=a: floor(a) for a in inputs])
+
+    load_floor_ms, launch_floor_ms = floor_ms(1), floor_ms(2)
+    # the same with one copy 8 times: the logits stay in L2
+    warm = [att] * COLD_COPIES
+    warm_ms = graph_ms([lambda a=a: ps.segment_softmax_partials(a, gaux)
+                        for a in warm])
+    load_floor_warm_ms = floor_ms(1, warm)
+    wrapper_ms = cuda_ms(lambda: ps.segment_softmax_partials(att, gaux))
+    library_eager_ms = cuda_ms(lambda: library(att, exps[0]))
+    plain_ms = cuda_ms(lambda: ps.segment_softmax_partials_plain(att, gaux))
     nbytes = (att.numel() * 4 + aux.loc.size * 4 + aux.loc.shape[0] * 4
               + 2 * m.numel() * 4)
     # per logit: a max, a subtraction, a min, an exp, an addition
     bound = max(nbytes / HBM_BYTES_PER_S, 5 * att.numel() / F32_FLOPS) * 1e3
-    time_line(f"segment_softmax_partials att {tuple(att.shape)} W={aux.w}",
-              ms, nbytes, plain_ms, "scatter_reduce(amax) + index_add of "
-              "ready exps", library_ms, bound)
+    log(f"[time] segment_softmax_partials att {tuple(att.shape)} W={aux.w}: "
+        f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; {COLD_COPIES} "
+        f"calls on their own copies in one CUDA graph, cold L2; the same "
+        f"launch without its walk {load_floor_ms:.4f} ms, returning at once "
+        f"{launch_floor_ms:.4f} ms; with warm L2 {warm_ms:.4f} ms, without "
+        f"its walk {load_floor_warm_ms:.4f} ms), eager "
+        f"wrapper {wrapper_ms:.4f} ms (warm L2, host launch), plain "
+        f"{plain_ms:.4f} ms, scatter_reduce(amax) + index_add of ready exps "
+        f"{library_ms:.4f} ms in the graph ({library_eager_ms:.4f} ms "
+        f"eager), bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s) "
+        f"| {card_line()}")
     return record("segment_softmax_partials", "segment_softmax_partials",
                   423, err, ms, plain_ms, bound, library_ms,
                   counter="softmax",
-                  launches_config="seg_rank_cap=0, softmax_pallas=True")
+                  launches_config="seg_rank_cap=0, softmax_pallas=True",
+                  wrapper_ms=wrapper_ms, library_eager_ms=library_eager_ms,
+                  load_floor_ms=load_floor_ms,
+                  launch_floor_ms=launch_floor_ms, warm_l2_ms=warm_ms,
+                  load_floor_warm_l2_ms=load_floor_warm_ms,
+                  timing="ms, library_ms and the floors: CUDA graph of 8 "
+                         "calls on 8 copies of the logits, cold L2 (*warm_l2*: "
+                         "one copy 8 times); wrapper_ms, library_eager_ms and "
+                         "plain_ms: 20 eager calls",
+                  blocks_per_sm=blocks)
 
 
 def phase_head_sum_path(fl, dev, batch):
@@ -875,6 +1014,17 @@ def phase_profile(fl, batch, labels):
         torch.cuda.synchronize()
     log("[profile] one forward under seg_rank_cap=0, softmax_pallas=True:")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+
+    gaux = se.pseg_tgt.to(fl.device)
+    att = torch.randn(gaux.loc.numel(), fl_c.cfg.n_heads, device=fl.device)
+    ps.segment_softmax_partials(att, gaux)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        ps.segment_softmax_partials(att, gaux)
+        torch.cuda.synchronize()
+    log("[profile] one segment_softmax_partials call (every device op it "
+        "issues):")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
 
 
 def main():

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -53,6 +54,7 @@ PW = 384
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 12288  # the tile's loc row sits in 48 KB of shared memory
+_MAX_SMEM = 227 * 1024  # shared memory one Hopper block may opt in to
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
@@ -597,6 +599,15 @@ def segment_softmax_partials_plain(att: torch.Tensor, aux: PallasSegAux):
     return m, s
 
 
+@functools.lru_cache(maxsize=None)
+def _softmax_smem_bytes(K: int, H: int, window: int) -> int:
+    """Shared memory one block of the softmax kernel takes for a tile."""
+    fn = getattr(cuda_build.load("segment_softmax_partials"),
+                 "segment_softmax_partials_smem")
+    fn.restype, fn.argtypes = ctypes.c_longlong, [_INT, _INT, _INT]
+    return fn(K, H, window)
+
+
 def segment_softmax_partials(att: torch.Tensor, aux: PallasSegAux):
     """Per-(tile, local-segment) online-softmax partials of target-sorted
     logits ``att [E, H]`` (f32; masked edges carry -1e30).
@@ -613,9 +624,9 @@ def segment_softmax_partials(att: torch.Tensor, aux: PallasSegAux):
     up to f32 rounding.
 
     ``aux`` is a runs aux without dead rows. A CUDA tensor goes through the
-    Hopper kernel (each launch adds one to
-    ``segment_softmax_partials.launches``); a CPU tensor through
-    :func:`segment_softmax_partials_plain`.
+    Hopper kernel, one launch that writes every output row itself (each
+    launch adds one to ``segment_softmax_partials.launches``); a CPU tensor
+    through :func:`segment_softmax_partials_plain`.
     """
     if att.dim() != 2:
         raise ValueError(f"att must be [E, H], got {tuple(att.shape)}")
@@ -633,19 +644,30 @@ def segment_softmax_partials(att: torch.Tensor, aux: PallasSegAux):
             f"segment_softmax_partials runs on cuda or cpu, not {att.device}")
     if att.dtype != torch.float32:
         raise TypeError(f"att must be float32, got {att.dtype}")
-    if not 0 < K * (H + 1) * 4 <= 48 * 1024:
-        raise ValueError(f"a tile of {K} x {H} logits and its loc row do not "
-                         "fit 48 KB of shared memory")
     _check_aux(att, aux)
+    if K % 4 or K > 1024 or att.data_ptr() % 16 or aux.loc.data_ptr() % 16:
+        raise ValueError(f"the kernel loads 16-byte vectors and gives each "
+                         f"lane at most 32 rows: tile {K} must be a multiple "
+                         "of 4 up to 1024, att and loc 16-byte aligned")
+    n_out = aux.num_blocks * aux.w
+    if n_out * H >= 2**31:
+        raise ValueError(f"{n_out} x {H} output words exceed int32")
+    window = aux.w + (aux.v or K)
+    smem = _softmax_smem_bytes(K, H, window)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a tile of {K} x {H} logits takes {smem} bytes of "
+                         f"shared memory, over {_MAX_SMEM}")
     fn = _c_fn("segment_softmax_partials",
-               [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR])
+               [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                ctypes.c_longlong, _PTR])
     with torch.cuda.device(att.device):
-        shape = (aux.num_blocks * aux.w, H)
-        m = torch.zeros(shape, dtype=torch.float32, device=att.device)
-        s = torch.zeros(shape, dtype=torch.float32, device=att.device)
+        # every row is written by the kernel: no fill
+        m = torch.empty((n_out, H), dtype=torch.float32, device=att.device)
+        s = torch.empty((n_out, H), dtype=torch.float32, device=att.device)
         stream = torch.cuda.current_stream(att.device).cuda_stream
         err = fn(att.data_ptr(), aux.loc.data_ptr(), aux.blk.data_ptr(),
-                 m.data_ptr(), s.data_ptr(), n_tiles, K, H, aux.w, stream)
+                 m.data_ptr(), s.data_ptr(), n_tiles, K, H, aux.w, window,
+                 n_out, stream)
     if err:
         raise RuntimeError(
             f"segment_softmax_partials kernel launch failed: cudaError {err}")
