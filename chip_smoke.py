@@ -43,38 +43,72 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
    the CPU's plain path;
 9. one standalone call of ``head_sum_product`` (no path of the package
    calls it) on a layer's gathered rows, against the edge stage's own
-   ``_head_sum_prod``.
+   ``_head_sum_prod``;
+10. serve for real at the ``ogbn_mag`` preset under ``--seg_pallas
+   --edge_bf16 --softmax_pallas``: build the ogbn-mag proxy at scale 0.1,
+   write it with ``save_dir`` and read it back memory-mapped, write a
+   checkpoint of a seeded ``NodeClassifierModel`` and restore it into an
+   ``OgbnPredictor`` (bit-equal), answer 8 JSON-lines requests through
+   ``serve_jsonl`` (1, 16, 128 and 256 nodes at ``vr_num`` 1 and 2; the C++
+   sampler, ``pad_sample``, the C++ host sort, the forward on the card)
+   timing each part, with ``live_partials`` and
+   ``segment_softmax_partials`` launched once per layer per forward and the
+   C++ entry points once per forward; sort one served batch by both host
+   paths (bit-equal); the same request on a CPU predictor; a coalesced
+   burst of 4 requests (one predictor call); and
+   ``python -m pyhgt_tpu_torch.run serve`` as a subprocess.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``. ``--profile`` also prints
 the top CUDA ops of one forward, of one train step, of one step under
-``edge_bwd="slab"``, of one forward under ``softmax_pallas`` and of one
-``segment_softmax_partials`` call by device time (torch.profiler).
+``edge_bwd="slab"``, of one forward under ``softmax_pallas``, of one
+``segment_softmax_partials`` call and of one predictor request by device
+time (torch.profiler).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
+import io
 import json
 import subprocess
+import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from pyhgt_tpu_torch.bench import make_flagship_trainer
+from pyhgt_tpu_torch.config import PRESETS
+from pyhgt_tpu_torch.datasets.mag_proxy import build as build_proxy
+from pyhgt_tpu_torch.experiments.engine import (
+    make_layout, make_tx, node_classifier,
+)
+from pyhgt_tpu_torch.experiments.serving import OgbnPredictor, serve_jsonl
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
+from pyhgt_tpu_torch.graph.csr import CSRGraph
+from pyhgt_tpu_torch.native import build as native_build
 from pyhgt_tpu_torch.ops import cuda_build, sorted_hgt
 from pyhgt_tpu_torch.ops import pallas_seg as ps
 from pyhgt_tpu_torch.ops.pallas_seg import (
     PallasSegAux, out_rows, live_partials, live_partials_pair,
     live_partials_pair_plain, live_partials_plain,
 )
+from pyhgt_tpu_torch.sampling.batch import pad_sample
 from pyhgt_tpu_torch.sampling.sorted_batch import (
-    pallas_seg_aux_split, sort_batch,
+    pallas_seg_aux_split, sort_batch, sort_edges,
 )
+from pyhgt_tpu_torch.tasks.base import gather_features
+from pyhgt_tpu_torch.train.checkpoint import save_checkpoint
+from pyhgt_tpu_torch.train.step import TrainState
+
+ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -172,13 +206,19 @@ def phase_build():
          str(cuda_build.CSRC / "segment_softmax_partials.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for level, path in FLOOR_LIBS.items()]
-    paths = cuda_build.build(ps.KERNEL_SOURCES)
-    for proc in floors:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"softmax floor build failed:\n{out}")
-    log(f"[build] {len(paths)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.2f} s")
+    # the host library (the C++ sampler and batch prep, g++) meanwhile
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native_build.build_library)
+        paths = cuda_build.build(ps.KERNEL_SOURCES)
+        for proc in floors:
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"softmax floor build failed:\n{out}")
+        log(f"[build] {len(paths)} kernel source(s) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        lib = host.result()
+    log(f"[build] host C++ library {lib.name} (sampler + batch prep) ready "
+        f"after {time.perf_counter() - t0:.2f} s")
     for name, text in cuda_build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -969,10 +1009,338 @@ def phase_config_grads(dev, batch, labels, main):
                       got, main, t0)
 
 
-def phase_profile(fl, batch, labels):
+# the predictor phase: the ogbn-mag proxy at this scale of the real counts
+# (73,638 papers, 113,464 authors, ~4.2 M directed edges: per-type degrees,
+# and so the sampled subgraphs' fan-outs, are those of full scale)
+PROXY_SCALE = 0.1
+# (request size, vr_num) of the 8 served requests; 256 nodes are two chunks
+# of the preset's batch of 128
+PREDICTOR_REQUESTS = [(n, vr) for vr in (1, 2) for n in (1, 16, 128, 256)]
+NATIVE_ENTRIES = ("hgs_sample", "sb_counting_sort", "sb_permute_build",
+                  "sb_tiled_aux", "sb_pallas_aux", "sb_tab_window_aux")
+# per layer of a predictor forward: the legacy target aux (the predictor
+# sorts with no rank cap), so live_partials for the wide sum and, under
+# softmax_pallas, the softmax partials
+PREDICTOR_FORWARD = {"live_partials": 1, "softmax": 1}
+
+
+def served_config():
+    """The slice's configuration: the ogbn_mag preset with the CLI's
+    ``--seg_pallas --edge_bf16 --softmax_pallas``."""
+    return PRESETS["ogbn_mag"].replace(seg_pallas=True, edge_bf16=True,
+                                       softmax_pallas=True)
+
+
+def predictor_graph(workdir):
+    """Build the proxy, write it with ``save_dir`` and read it back
+    memory-mapped, as ``run serve --data`` reads it."""
+    t0 = time.perf_counter()
+    g = build_proxy(PROXY_SCALE, seed=0)
+    t1 = time.perf_counter()
+    g.save_dir(str(workdir / "graph"))
+    del g
+    t2 = time.perf_counter()
+    g = CSRGraph.load_dir(str(workdir / "graph"), mmap=True)
+    t3 = time.perf_counter()
+    n_cls = int(np.asarray(g.aux["y"]).max()) + 1
+    in_dim = g.features["paper"]["emb"].shape[1]
+    log(f"[predictor] proxy at scale {PROXY_SCALE}: {g} ({n_cls} classes, "
+        f"paper input {in_dim}); build {t1 - t0:.2f} s, save_dir "
+        f"{t2 - t1:.2f} s, load_dir(mmap) {t3 - t2:.3f} s")
+    if n_cls != 349 or in_dim != 129:
+        raise AssertionError("the proxy lost its ogbn-mag classes or width")
+    return g
+
+
+def native_counts():
+    return {k: native_build.CALLS[k] for k in NATIVE_ENTRIES}
+
+
+def phase_predictor(dev, workdir):
+    """The port's serving path for real: checkpoint -> OgbnPredictor ->
+    JSON-lines requests through the C++ sampler, pad_sample, the C++ host
+    sort and the forward on the card, with its kernels counted."""
+    cfg = served_config()
+    g = predictor_graph(workdir)
+    ckpt = str(workdir / "ckpt")
+    layout = make_layout(cfg, g)
+    model = node_classifier(cfg, layout, g.features["paper"]["emb"].shape[1],
+                            int(np.asarray(g.aux["y"]).max()) + 1, seed=1)
+    save_checkpoint(ckpt, TrainState(
+        model, make_tx(cfg, model.named_parameters(), 1)))
+    t0 = time.perf_counter()
+    pred = OgbnPredictor(cfg, g, ckpt, log=log, device=dev)
+    log(f"[predictor] OgbnPredictor on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s: sampler "
+        f"{type(pred.task.sampler).__name__}, layout node cap "
+        f"{layout.node_cap}, {layout.num_edges} padded edges")
+    if type(pred.task.sampler).__name__ != "NativeHGSampler":
+        raise AssertionError("the predictor did not take the C++ sampler")
+    restored = pred.model.state_dict()
+    diff = [k for k, v in model.state_dict().items()
+            if not torch.equal(restored[k].cpu(), v)]
+    log(f"[predictor] checkpoint restore: {len(restored)} tensors, "
+        f"{sum(v.numel() for v in restored.values())} values, "
+        f"{len(diff)} not bit-equal to what was written")
+    if diff or restored.keys() != model.state_dict().keys():
+        raise AssertionError(f"checkpoint restore differs: {diff}")
+
+    rng = np.random.default_rng(42)
+    n_paper = g.num_nodes["paper"]
+
+    def request(n, vr):
+        return {"nodes": rng.choice(n_paper, n, replace=False).tolist(),
+                "vr_num": vr}
+
+    def serve_one(req):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        served = serve_jsonl(pred, stdin=io.StringIO(json.dumps(req) + "\n"),
+                             stdout=out, log=lambda s: None)
+        ms = (time.perf_counter() - t0) * 1e3
+        resp = json.loads(out.getvalue())
+        if served != 1 or "error" in resp:
+            raise AssertionError(f"request failed: {resp.get('error')}")
+        return resp, ms
+
+    serve_one(request(128, 1))                  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    pred.stats.clear()
+    reset_counts()
+    before = native_counts()
+    rows = []
+    for n, vr in PREDICTOR_REQUESTS:
+        req = request(n, vr)
+        k = len(pred.stats)
+        resp, total = serve_one(req)
+        st = pred.stats[k:]
+        lp = np.asarray(resp["logp"])
+        ok = (resp["nodes"] == req["nodes"] and len(resp["pred"]) == n
+              and lp.shape == (n, pred.n_classes)
+              and bool(np.isfinite(lp).all()) and bool((lp < 0).all())
+              and all(0 <= c < pred.n_classes for c in resp["pred"]))
+        row = {"nodes": n, "vr_num": vr, "forwards": len(st),
+               "sample_ms": sum(x["sample_ms"] for x in st),
+               "sort_ms": sum(x["sort_ms"] for x in st),
+               "forward_ms": sum(x["forward_ms"] for x in st),
+               "total_ms": total,
+               "edges": [x["edges"] for x in st]}
+        rows.append(row)
+        log(f"[predictor] request {len(rows)}: {n} nodes, vr_num {vr}, "
+            f"{len(st)} forward(s) | sampler {row['sample_ms']:.2f} ms, host "
+            f"sort {row['sort_ms']:.2f} ms, forward {row['forward_ms']:.2f} "
+            f"ms, total {total:.2f} ms | valid edges {row['edges']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"request {len(rows)}: bad answer")
+    counts = read_counts()
+    natives = {k: v - before[k] for k, v in native_counts().items()}
+    for key in ("sample_ms", "sort_ms", "forward_ms", "total_ms"):
+        vals = [r[key] for r in rows]
+        log(f"[predictor] {key} per request over {len(rows)}: mean "
+            f"{np.mean(vals):.2f}, max {np.max(vals):.2f}")
+    forwards = sum(r["forwards"] for r in rows)
+    per_fwd = {key: sum(x[key] for x in pred.stats) / forwards
+               for key in ("sample_ms", "sort_ms", "forward_ms")}
+    edges = [e for r in rows for e in r["edges"]]
+    log(f"[predictor] per forward over {forwards}: sampler "
+        f"{per_fwd['sample_ms']:.2f} ms, host sort {per_fwd['sort_ms']:.2f} "
+        f"ms, forward {per_fwd['forward_ms']:.2f} ms; valid edges mean "
+        f"{np.mean(edges):.1f} (min {min(edges)}, max {max(edges)}) of "
+        f"{layout.num_edges} padded -> {np.mean(edges) / (per_fwd['forward_ms'] / 1e3):.6g} "
+        f"edges/s (forward)")
+    expected = scaled(PREDICTOR_FORWARD, cfg.n_layers * forwards)
+    log(f"[predictor] kernel launches {counts} over {forwards} forwards "
+        f"(expected per layer and forward {PREDICTOR_FORWARD} and no other "
+        f"launch); C++ entry calls {natives}")
+    if forwards != sum(-(-n // cfg.batch_size) * vr
+                       for n, vr in PREDICTOR_REQUESTS):
+        raise AssertionError(f"{forwards} forwards")
+    if counts != expected:
+        raise AssertionError("the predictor's launches differ")
+    if natives["hgs_sample"] != forwards or \
+            natives["sb_permute_build"] != forwards:
+        raise AssertionError("the C++ sampler or the C++ sort did not run "
+                             "once per forward")
+    return pred, counts, rows
+
+
+def phase_predictor_parts(pred):
+    """The sampler's part of a request by step, for 128 paper seeds (3
+    draws): the C++ sampler, the feature gather from the memory-mapped
+    graph, ``pad_sample``; and what the sample holds."""
+    task = pred.task
+    rng = np.random.default_rng(10)
+    ms = {"sample_raw": [], "gather_features": [], "pad_sample": []}
+    for _ in range(3):
+        ids = rng.choice(task.graph.num_nodes["paper"], 128, replace=False)
+        seeds = {"paper": np.stack([ids, task.years[ids]], axis=1)}
+        t0 = time.perf_counter()
+        raw = task.sampler.sample_raw(seeds, rng=rng)
+        t1 = time.perf_counter()
+        feats = gather_features(task.graph, raw)
+        t2 = time.perf_counter()
+        sub = pad_sample(raw, task.layout, feats, rng=rng)
+        t3 = time.perf_counter()
+        for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+            ms[k].append(dt * 1e3)
+    nodes = {t: len(v) for t, v in raw.node_ids.items()}
+    edges = sum(len(e[0]) for e in raw.edges.values())
+    log(f"[predictor-parts] 128 seeds, 3 draws, mean ms: " + ", ".join(
+        f"{k} {np.mean(v):.2f}" for k, v in ms.items()) + f"; last draw: "
+        f"nodes {nodes}, {edges} sampled edges; the batch: "
+        f"{int(sub.edge_mask.sum())} valid edges (self loops included), "
+        f"{int(sub.block_overflow.sum())} dropped by the edge caps")
+
+
+def phase_predictor_sort(pred):
+    """One served batch sorted by the C++ path and by the numpy path: every
+    field bit-equal; both timed (serving sort and the backward's too)."""
+    sub = pred.last_batch.sub
+    args = (sub.edge_src, sub.edge_tgt, sub.edge_dt, sub.edge_mask,
+            pred.layout, pred.em)
+    for with_backward in (False, True):
+        ms, got = {}, {}
+        for native in (True, False, True, False):
+            t0 = time.perf_counter()
+            got[native] = sort_edges(*args, native=native,
+                                     with_backward=with_backward)
+            ms.setdefault(native, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        bad = sorted_differences(got[True], got[False])
+        log(f"[predictor-sort] with_backward={with_backward}: C++ "
+            f"{min(ms[True]):.2f} ms, numpy {min(ms[False]):.2f} ms (best of "
+            f"2 each); fields not bit-equal: {bad or 'none'}")
+        if bad:
+            raise AssertionError(f"C++ and numpy sorts differ: {bad}")
+
+
+def sorted_differences(a, b):
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, PallasSegAux):
+            same = all(np.array_equal(getattr(x, k), getattr(y, k))
+                       for k in ("loc", "blk", "ptr2", "live_key")
+                       if getattr(x, k) is not None) and \
+                (x.w, x.v, x.window) == (y.w, y.v, y.window)
+        elif isinstance(x, np.ndarray):
+            same = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def phase_predictor_cpu(pred, workdir):
+    """The same request, the same generator, on a CPU predictor (the plain
+    path): the same sampled subgraph, log-probs within CPU_TOL."""
+    cpu = OgbnPredictor(pred.cfg, pred.task.graph, str(workdir / "ckpt"),
+                        log=log, device="cpu")
+    ids = np.random.default_rng(8).choice(pred.task.graph.num_nodes["paper"],
+                                          16, replace=False)
+    got = pred.predict_logprobs(ids, vr_num=1, rng=np.random.default_rng(7))
+    t0 = time.perf_counter()
+    want = cpu.predict_logprobs(ids, vr_num=1, rng=np.random.default_rng(7))
+    a, b = pred.last_batch, cpu.last_batch
+    same_nodes = (np.array_equal(a.target_ids, b.target_ids)
+                  and np.array_equal(a.sub.edge_src, b.sub.edge_src)
+                  and np.array_equal(a.sub.edge_tgt, b.sub.edge_tgt))
+    err = float(np.abs(got - want).max())
+    ok = same_nodes and err <= CPU_TOL
+    log(f"[predictor-cpu] 16 nodes, vr_num 1, default_rng(7): CPU predictor "
+        f"in {time.perf_counter() - t0:.1f} s; same sampled nodes and edges "
+        f"{same_nodes}; max |GPU - CPU| accumulated log-prob {err:.3e} (tol "
+        f"{CPU_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the GPU and CPU predictors disagree")
+
+
+class CallCounter:
+    """A predictor that records each ``predict_logprobs`` call."""
+
+    def __init__(self, pred):
+        self.pred, self.calls = pred, []
+        self.n_classes = pred.n_classes
+
+    def predict_logprobs(self, nodes, vr_num=None, rng=None):
+        self.calls.append(len(nodes))
+        return self.pred.predict_logprobs(nodes, vr_num=vr_num, rng=rng)
+
+
+def phase_predictor_burst(pred):
+    """A burst of 4 requests through the coalescing transport
+    (``coalesce_wait=0.05``): one predictor call, answers in order."""
+    rng = np.random.default_rng(9)
+    reqs = [{"nodes": rng.choice(pred.task.graph.num_nodes["paper"], n,
+                                 replace=False).tolist(), "vr_num": 1}
+            for n in (1, 8, 16, 32)]
+    wrapped, out = CallCounter(pred), io.StringIO()
+    t0 = time.perf_counter()
+    served = serve_jsonl(wrapped, stdin=io.StringIO(
+        "".join(json.dumps(r) + "\n" for r in reqs)), stdout=out,
+        log=lambda s: None, coalesce_wait=0.05)
+    ms = (time.perf_counter() - t0) * 1e3
+    resp = [json.loads(x) for x in out.getvalue().splitlines()]
+    ok = (served == 4 and wrapped.calls == [57]
+          and [r["nodes"] for r in resp] == [r["nodes"] for r in reqs]
+          and all(len(r["pred"]) == len(q["nodes"])
+                  for r, q in zip(resp, reqs)))
+    log(f"[predictor-burst] 4 requests (1, 8, 16, 32 nodes) with "
+        f"coalesce_wait 0.05: predictor calls {wrapped.calls}, answers in "
+        f"request order {ok}, {ms:.1f} ms for the burst "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the coalesced burst was not one call in order")
+
+
+def phase_predictor_cli(workdir):
+    """``python -m pyhgt_tpu_torch.run serve`` as a user runs it, with 2
+    requests on stdin."""
+    reqs = [{"nodes": [0, 5, 9], "vr_num": 1}, {"nodes": [123], "vr_num": 2}]
+    cmd = [sys.executable, "-m", "pyhgt_tpu_torch.run", "serve", "--data",
+           str(workdir / "graph"), "--ckpt", str(workdir / "ckpt"),
+           "--seg_pallas", "--edge_bf16", "--softmax_pallas"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, input="".join(json.dumps(r) + "\n"
+                                             for r in reqs),
+                          capture_output=True, text=True, timeout=600,
+                          cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    ok = proc.returncode == 0 and len(lines) == 2
+    if ok:
+        resp = [json.loads(x) for x in lines]
+        ok = all(len(r["pred"]) == len(q["nodes"]) and r["nodes"] == q["nodes"]
+                 and all(0 <= c < 349 for c in r["pred"])
+                 for r, q in zip(resp, reqs))
+    log(f"[predictor-cli] {' '.join(cmd[1:4])} ... --seg_pallas --edge_bf16 "
+        f"--softmax_pallas: exit {proc.returncode} in {secs:.1f} s, "
+        f"{len(lines)} answer lines {'ok' if ok else 'FAIL'}")
+    if not ok:
+        log(proc.stderr[-4000:])
+        raise AssertionError("the CLI did not answer both requests")
+
+
+def phase_profile(fl, batch, labels, pred):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ids = np.random.default_rng(3).choice(pred.task.graph.num_nodes["paper"],
+                                          128, replace=False)
+    pred.predict_logprobs(ids, vr_num=1, rng=np.random.default_rng(4))
+    torch.cuda.synchronize()
+    pred.stats.clear()
+    with profile(activities=acts) as prof:
+        pred.predict_logprobs(ids, vr_num=1, rng=np.random.default_rng(4))
+        torch.cuda.synchronize()
+    st = pred.stats[0]
+    log(f"[profile] one predictor request (128 nodes, vr_num 1, one forward) "
+        f"under the profiler: sampler {st['sample_ms']:.2f} ms, host sort "
+        f"{st['sort_ms']:.2f} ms, forward {st['forward_ms']:.2f} ms, "
+        f"{st['edges']} valid edges:")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
     se = fl.sort(batch)
     fl.forward(batch, se)
     torch.cuda.synchronize()
@@ -1074,14 +1442,26 @@ def main():
                     overrides=cfg["overrides"], step_counts=cfg["step"])
     config_counts["head_sum"] = phase_head_sum_path(fl, dev, batch)["head_sum"]
     phase_config_grads(dev, batch, labels, main_grads)
-    if args.profile:
-        phase_profile(fl, batch, labels)
+    # the predictor's graph, checkpoint and CLI run live in a temporary
+    # directory, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        workdir = Path(tmp)
+        pred, predictor_counts, _ = phase_predictor(dev, workdir)
+        phase_predictor_parts(pred)
+        phase_predictor_sort(pred)
+        phase_predictor_cpu(pred, workdir)
+        phase_predictor_burst(pred)
+        phase_predictor_cli(workdir)
+        if args.profile:
+            phase_profile(fl, batch, labels, pred)
 
     # launches: the serving path's and the training path's, each counted
     # from 0 just before the path ran
     single["launches_serve"] = serve_counts["live_partials"]
     single["launches_train"] = train_counts["live_partials"]
-    single["launches"] = single["launches_serve"] + single["launches_train"]
+    single["launches_predictor"] = predictor_counts["live_partials"]
+    single["launches"] = (single["launches_serve"] + single["launches_train"]
+                          + single["launches_predictor"])
     for rec in pair:
         kind = rec.pop("kind")
         rec["launches_serve"] = serve_counts[f"pair_{kind}"]
@@ -1095,6 +1475,9 @@ def main():
             rec["launches_serve"] = config_serve[counter]
             rec["launches_train"] = config_counts[counter]
             rec["launches"] = rec["launches_serve"] + rec["launches_train"]
+            if counter == "softmax":
+                rec["launches_predictor"] = predictor_counts[counter]
+                rec["launches"] += rec["launches_predictor"]
         if not rec["launches"]:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  "path")

@@ -16,7 +16,10 @@ The port keeps every HGT leaf under the same name and shape; only the flax
 leaves mean: it carries a tree of gradients or of updated parameters the
 same way (:func:`flax_to_state_dict`), and :func:`named_to_flax` brings the
 port's named tensors (``named_parameters()``, or their ``.grad``) back into
-the flax layout.
+the flax layout. A JAX ``NodeClassifierModel`` tree has the same layout
+(``gnn`` and ``clf``), so it maps unchanged onto the port's
+``NodeClassifierModel``; :func:`checkpoint_from_flax` writes such a tree
+as a port checkpoint.
 """
 
 from __future__ import annotations
@@ -79,3 +82,13 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
     parameter must be covered)."""
     model.load_state_dict(flax_to_state_dict(tree), strict=True)
     return model
+
+
+def checkpoint_from_flax(tree: Mapping, path: str, step: int = 0) -> None:
+    """Write the port checkpoint directory ``path``
+    (:mod:`pyhgt_tpu_torch.train.checkpoint`) from a JAX parameter tree
+    (numpy or array leaves, e.g. a restored ``TrainState.params``): the
+    model's state dict and ``step``, with no optimizer state."""
+    from pyhgt_tpu_torch.train.checkpoint import write_checkpoint
+
+    write_checkpoint(path, flax_to_state_dict(tree), None, step)

@@ -148,8 +148,10 @@ class Flagship:
 
     def sort(self, batch: SubgraphBatch, with_backward: bool = True
              ) -> SortedEdges:
-        """Host-side sort + aux of one batch (numpy); ``with_backward=False``
-        leaves out what only a training step reads."""
+        """Host-side sort + aux of one batch (the C++ batch prep when its
+        library builds, else numpy; the same arrays either way);
+        ``with_backward=False`` leaves out what only a training step
+        reads."""
         c = self.cfg
         return sort_batch(batch, self.layout, self.em,
                           pk=c.seg_tile or None, pw=c.seg_w or None,

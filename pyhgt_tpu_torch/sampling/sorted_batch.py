@@ -24,7 +24,11 @@ the JAX package's. At batch-build time the host precomputes:
   and the two-region aux (``src_split_cap``: the meta blocks through a
   rank-capped aux, the self-block tail through a plain CSR).
 
-The C++ batch-prep path is not ported yet.
+The heavy steps (the three stable sorts, the fused permute, the tiled and
+kernel aux) have a C++ counterpart in
+:mod:`pyhgt_tpu_torch.sampling.native_batch`; ``sort_edges(native=None)``
+takes it when its library builds, and every field is bit-identical either
+way.
 """
 
 from __future__ import annotations
@@ -411,6 +415,20 @@ def sort_batch(batch: SubgraphBatch, layout: BatchLayout,
                       batch.edge_mask, layout, em, **kw)
 
 
+_NATIVE_OK: Optional[bool] = None
+
+
+def _native_batch():
+    """The C++ batch-prep module, or None if its library does not build.
+    Probed once; numpy stays the always-available reference semantics."""
+    global _NATIVE_OK
+    from pyhgt_tpu_torch.sampling import native_batch
+
+    if _NATIVE_OK is None:
+        _NATIVE_OK = native_batch.native_available()
+    return native_batch if _NATIVE_OK else None
+
+
 def sort_edges(
     edge_src,
     edge_tgt,
@@ -425,6 +443,7 @@ def sort_edges(
     pw: Optional[int] = None,
     src_rank_cap: int = 0,
     src_split_cap: int = 0,
+    native: Optional[bool] = None,
 ) -> SortedEdges:
     """Sort a batch's flat edge arrays by target and build the aux.
     ``with_backward=False`` leaves out the src/tab groupings that only the
@@ -446,12 +465,23 @@ def sort_edges(
     ``tabidx`` instead of a global sentinel (the JAX package's convention:
     it keeps its source/tab-order aux layout-static); their rows are zero,
     so sums are unchanged.
+
+    ``native=None`` takes the C++ batch-prep core (stable counting sorts,
+    one-pass aux construction) when its library builds, ``True`` raises if it
+    cannot, ``False`` keeps the numpy path; the outputs are bit-identical
+    either way. The rank-capped aux (``tgt_rank_cap``, ``src_rank_cap``,
+    ``src_split_cap``) and the tab compaction are numpy on both paths, as
+    in the JAX package.
     """
     K = pk or PK
     W = pw or (pk or PW)
     if K % REDUCE_TILE:
         raise ValueError(f"kernel tile {K} is not a multiple of the "
                          f"{REDUCE_TILE} reduction tile")
+    nb = _native_batch() if native in (None, True) else None
+    if native is True and nb is None:
+        raise RuntimeError("native batch prep requested but its library "
+                           "does not build")
     em = em or EdgeStaticMeta.from_layout(layout)
     T, C = layout.num_types, layout.node_cap
     N = T * C
@@ -466,39 +496,52 @@ def sort_edges(
     mask = np.asarray(edge_mask)
 
     key = np.where(mask, tgt, N).astype(np.int32)  # padding sorts last
-    perm = np.argsort(key, kind="stable")
-    src, tgt, mask, key = src0[perm], tgt[perm], mask[perm], key[perm]
-    blk_e = em.edge_block[perm]
-    gidx = (src0 + em.gather_off)[perm]
-    gidx = np.where(mask, gidx, blk_e * C + (C - 1)).astype(np.int32)
-    tabidx = (em.edge_block * L + dt0)[perm]
-    tabidx = np.where(mask, tabidx, blk_e * L + (L - 1)).astype(np.int32)
-    rel = em.edge_rel[perm]
-    onehot = np.zeros((E, R), dtype=np.float32)
-    onehot[np.arange(E), rel] = mask  # padded rows are all-zero
-
-    # pad the flat edge axis to the kernel tile (extra edges are masked and
-    # sort last, so every downstream pointer stays correct)
+    # the flat edge axis is padded to the kernel tile (extra edges are
+    # masked and sort last, so every downstream pointer stays correct)
     padn = (-E) % K
-    if padn:
-        src = np.concatenate([src, np.zeros(padn, src.dtype)])
-        tgt = np.concatenate([tgt, np.zeros(padn, tgt.dtype)])
-        mask = np.concatenate([mask, np.zeros(padn, bool)])
-        key = np.concatenate([key, np.full(padn, N, key.dtype)])
-        gidx = np.concatenate([gidx, np.full(padn, B * C - 1, gidx.dtype)])
-        tabidx = np.concatenate(
-            [tabidx, np.full(padn, B * L - 1, tabidx.dtype)]
-        )
-        onehot = np.concatenate([onehot, np.zeros((padn, R), np.float32)])
-    safe_tgt = np.where(mask, tgt, N - 1).astype(np.int32)
+    if nb is not None:
+        # one C++ pass after the target counting sort: permute, masked
+        # gidx/tabidx, the [E, R] one-hot and the padding
+        perm, _ = nb.counting_sort(key, N)
+        src, safe_tgt, _, mask, key, gidx, tabidx, onehot = nb.permute_build(
+            src0, tgt, dt0, mask, perm, em.edge_block, em.gather_off,
+            em.edge_rel, E + padn, C=C, L=L, R=R, N=N, B=B)
+    else:
+        perm = np.argsort(key, kind="stable")
+        src, tgt, mask, key = src0[perm], tgt[perm], mask[perm], key[perm]
+        blk_e = em.edge_block[perm]
+        gidx = (src0 + em.gather_off)[perm]
+        gidx = np.where(mask, gidx, blk_e * C + (C - 1)).astype(np.int32)
+        tabidx = (em.edge_block * L + dt0)[perm]
+        tabidx = np.where(mask, tabidx, blk_e * L + (L - 1)).astype(np.int32)
+        rel = em.edge_rel[perm]
+        onehot = np.zeros((E, R), dtype=np.float32)
+        onehot[np.arange(E), rel] = mask  # padded rows are all-zero
+        if padn:
+            src = np.concatenate([src, np.zeros(padn, src.dtype)])
+            tgt = np.concatenate([tgt, np.zeros(padn, tgt.dtype)])
+            mask = np.concatenate([mask, np.zeros(padn, bool)])
+            key = np.concatenate([key, np.full(padn, N, key.dtype)])
+            gidx = np.concatenate(
+                [gidx, np.full(padn, B * C - 1, gidx.dtype)])
+            tabidx = np.concatenate(
+                [tabidx, np.full(padn, B * L - 1, tabidx.dtype)]
+            )
+            onehot = np.concatenate(
+                [onehot, np.zeros((padn, R), np.float32)])
+        safe_tgt = np.where(mask, tgt, N - 1).astype(np.int32)
 
     if with_backward:
         # the tab order is taken on the uncompacted index (the compaction
         # below is monotone and keeps it sorted)
-        perm_src = np.argsort(gidx.astype(np.int64), kind="stable").astype(
-            np.int32)
-        perm_tab = np.argsort(tabidx.astype(np.int64), kind="stable").astype(
-            np.int32)
+        if nb is not None:
+            perm_src, _ = nb.counting_sort(gidx, B * C)
+            perm_tab, _ = nb.counting_sort(tabidx, B * L)
+        else:
+            perm_src = np.argsort(gidx.astype(np.int64),
+                                  kind="stable").astype(np.int32)
+            perm_tab = np.argsort(tabidx.astype(np.int64),
+                                  kind="stable").astype(np.int32)
 
     # tab compaction: remap the tab grouping to per-block occupied-Δt ranks
     # BEFORE any tab aux is built; only the segment space (B*L -> B*Lt) and
@@ -526,15 +569,21 @@ def sort_edges(
                             B=B, C=C, Lt=Lt, K=K, W=W,
                             src_rank_cap=src_rank_cap,
                             src_split_cap=src_split_cap, src_cut=src_cut,
-                            src_s1=src_s1)
+                            src_s1=src_s1, nb=nb)
 
-    tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = _tiled_aux(key, N)
     key64 = key.astype(np.int64)
     pseg_tgt = None
     if tgt_rank_cap:
         pseg_tgt = pallas_seg_aux(key64, N, K, tgt_rank_cap, v=tgt_rank_cap)
-    if pseg_tgt is None:
-        pseg_tgt = pallas_seg_aux(key64, N, K, W)
+    if nb is not None:
+        tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = nb.tiled_aux(
+            key, N, REDUCE_TILE)
+        if pseg_tgt is None:
+            pseg_tgt = nb.pallas_aux(key, N, K, W)
+    else:
+        tl_tgt, li_tgt, lk_tgt, ll_tgt, sp2_tgt = _tiled_aux(key, N)
+        if pseg_tgt is None:
+            pseg_tgt = pallas_seg_aux(key64, N, K, W)
 
     return SortedEdges(
         edge_src=src.astype(np.int32),
@@ -556,7 +605,7 @@ def sort_edges(
 
 def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt,
                   K=PK, W=PW, src_rank_cap=0, src_split_cap=0, src_cut=0,
-                  src_s1=0):
+                  src_s1=0, nb=None):
     """The SortedEdges fields only the backward reads: the src (``gidx``)
     and tab (``tabidx``, already compacted to ``Lt`` slots per block)
     groupings' CSR pointers, tiled aux and kernel aux (legacy width: src
@@ -565,18 +614,34 @@ def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt,
     caps are given and hold, the singleton-split and two-region src aux.
     The masked edges' own-block indexing keeps the src-order block
     boundaries equal to the static per-block capacities, which is what lets
-    the window aux and the two-region boundary build."""
+    the window aux and the two-region boundary build. ``nb``: the C++
+    batch-prep module, which then builds the tiled, kernel and window aux."""
     key_src_sorted = gidx.astype(np.int64)[perm_src]
     key_tab_sorted = tabidx.astype(np.int64)[perm_tab]
     seg_ptr_src = np.searchsorted(
         key_src_sorted, np.arange(B * C + 1)).astype(np.int32)
     seg_ptr_tab = np.searchsorted(
         key_tab_sorted, np.arange(B * Lt + 1)).astype(np.int32)
-    tl_src, li_src, _, _, sp2_src = _tiled_aux(key_src_sorted, B * C)
-    tl_tab, li_tab, _, _, sp2_tab = _tiled_aux(key_tab_sorted, B * Lt)
     # the window's only W constraint is W >= Lt (its blocks are META blocks,
     # which advance by at most one per tile whatever W is)
     W_tab = ((Lt + 7) // 8) * 8
+    tab_src = tabidx[perm_src]
+    if nb is not None:
+        tl_src, li_src, _, _, sp2_src = nb.tiled_aux(
+            key_src_sorted, B * C, REDUCE_TILE)
+        tl_tab, li_tab, _, _, sp2_tab = nb.tiled_aux(
+            key_tab_sorted, B * Lt, REDUCE_TILE)
+        pseg_src = nb.pallas_aux(key_src_sorted, B * C, K, W)
+        pseg_tab = nb.pallas_aux(key_tab_sorted, B * Lt, K, W)
+        ptab_src = (nb.tab_window_aux(tab_src, B, Lt, K, W_tab)
+                    if K >= Lt else None)
+    else:
+        tl_src, li_src, _, _, sp2_src = _tiled_aux(key_src_sorted, B * C)
+        tl_tab, li_tab, _, _, sp2_tab = _tiled_aux(key_tab_sorted, B * Lt)
+        pseg_src = pallas_seg_aux(key_src_sorted, B * C, K, W)
+        pseg_tab = pallas_seg_aux(key_tab_sorted, B * Lt, K, W)
+        ptab_src = (pallas_tab_window_aux(tab_src, B, Lt, K, W_tab)
+                    if K >= Lt else None)
     pseg_src_lo = src_tail_ptr2 = None
     if src_split_cap and src_cut and src_s1:
         pseg_src_lo, src_tail_ptr2 = _src_split_aux(
@@ -596,10 +661,7 @@ def _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab, *, B, C, Lt,
         tgt_src_order=safe_tgt[perm_src], tgt_tab_order=safe_tgt[perm_tab],
         tl_src=tl_src, live_idx_src=li_src, seg_ptr2_src=sp2_src,
         tl_tab=tl_tab, live_idx_tab=li_tab, seg_ptr2_tab=sp2_tab,
-        pseg_src=pallas_seg_aux(key_src_sorted, B * C, K, W),
-        pseg_tab=pallas_seg_aux(key_tab_sorted, B * Lt, K, W),
-        ptab_src=(pallas_tab_window_aux(tabidx[perm_src], B, Lt, K, W_tab)
-                  if K >= Lt else None),
+        pseg_src=pseg_src, pseg_tab=pseg_tab, ptab_src=ptab_src,
         pseg_src_multi=pseg_src_multi, src_single_edges=src_single_edges,
         src_single_inv=src_single_inv, pseg_src_lo=pseg_src_lo,
         src_tail_ptr2=src_tail_ptr2, src_cut=src_cut, src_s1=src_s1,

@@ -11,6 +11,7 @@ keep the port's entry points off the CPU unless asked.
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -161,13 +162,47 @@ def _imported_modules(path):
             yield node.module
 
 
+def _jax_package_paths(path):
+    """String constants of ``path`` (docstrings aside) that name a path into
+    the JAX package: ``pyhgt_tpu/...`` in a literal, or the bare package name
+    handed to a call (``os.path.join``, ``Path``, ``open``) or to the ``/``
+    of a path."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+
+    def bare(n):
+        return isinstance(n, ast.Constant) and n.value == "pyhgt_tpu"
+
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs
+                and re.search(r"(^|[^\w])pyhgt_tpu[/\\]", node.value)):
+            yield node.value
+        elif isinstance(node, ast.Call) and any(map(bare, node.args)):
+            yield ast.unparse(node)
+        elif (isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div)
+              and (bare(node.left) or bare(node.right))):
+            yield ast.unparse(node)
+
+
 def test_port_imports_no_jax():
+    """No module of the port, nor the smoke run, imports JAX or the JAX
+    package, and no module of the port names a path into the JAX package
+    (so no build of the port reads one of its files)."""
     files = sorted((ROOT / "pyhgt_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    banned = ("jax", "jaxlib", "flax", "optax", "pyhgt_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "pyhgt_tpu")
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files for m in _imported_modules(f)
         if m.split(".")[0] in banned
     ]
     assert len(files) > 10 and not bad, bad
+    paths = [(str(f.relative_to(ROOT)), s) for f in files[:-1]
+             for s in _jax_package_paths(f)]
+    assert not paths, paths
