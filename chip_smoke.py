@@ -56,7 +56,19 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
    C++ entry points once per forward; sort one served batch by both host
    paths (bit-equal); the same request on a CPU predictor; a coalesced
    burst of 4 requests (one predictor call); and
-   ``python -m pyhgt_tpu_torch.run serve`` as a subprocess.
+   ``python -m pyhgt_tpu_torch.run serve`` as a subprocess;
+11. train for real at the ``ogbn_mag`` preset's full width with the same
+   flags, on the same proxy graph: ``run_ogbn`` cut in length only (2
+   epochs of 6 batches x ``repeat`` 2, the loader's 4 threads sampling and
+   sorting with the backward's aux, 4 validation batches per epoch, best
+   and ``latest`` checkpoints, the metrics jsonl, the VR test evaluation
+   of 256 papers at ``vr_num`` 2), printing per epoch the step time, the
+   consumer's wait on the loader, train edges/s, valid accuracy and the
+   edges the caps dropped, with every launch asserted; a resumed run that
+   trains exactly one more epoch; one producer item's loss and global
+   gradient norm on the card against the CPU's plain path (dropout 0);
+   ``evaluate_ogbn`` of the best checkpoint in both modes; and that
+   checkpoint served by an ``OgbnPredictor``.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -64,7 +76,8 @@ last line is ``{"ok": true, "device": {...}}``. ``--profile`` also prints
 the top CUDA ops of one forward, of one train step, of one step under
 ``edge_bwd="slab"``, of one forward under ``softmax_pallas``, of one
 ``segment_softmax_partials`` call and of one predictor request by device
-time (torch.profiler).
+time (torch.profiler), and the card's idle share over the resumed
+epoch's train steps.
 """
 
 from __future__ import annotations
@@ -88,13 +101,15 @@ from pyhgt_tpu_torch.bench import make_flagship_trainer
 from pyhgt_tpu_torch.config import PRESETS
 from pyhgt_tpu_torch.datasets.mag_proxy import build as build_proxy
 from pyhgt_tpu_torch.experiments.engine import (
-    make_layout, make_tx, node_classifier,
+    TRAIN_SPAN, _make_producer, evaluate_ogbn, make_layout, make_sampler,
+    make_tx, node_classifier, run_ogbn,
 )
 from pyhgt_tpu_torch.experiments.serving import OgbnPredictor, serve_jsonl
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
 from pyhgt_tpu_torch.graph.csr import CSRGraph
 from pyhgt_tpu_torch.native import build as native_build
 from pyhgt_tpu_torch.ops import cuda_build, sorted_hgt
+from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
 from pyhgt_tpu_torch.ops import pallas_seg as ps
 from pyhgt_tpu_torch.ops.pallas_seg import (
     PallasSegAux, out_rows, live_partials, live_partials_pair,
@@ -105,7 +120,10 @@ from pyhgt_tpu_torch.sampling.sorted_batch import (
     pallas_seg_aux_split, sort_batch, sort_edges,
 )
 from pyhgt_tpu_torch.tasks.base import gather_features
+from pyhgt_tpu_torch.tasks.evaluate import multi_sample_eval
+from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import save_checkpoint
+from pyhgt_tpu_torch.train.log import profile_trace
 from pyhgt_tpu_torch.train.step import TrainState
 
 ROOT = Path(__file__).resolve().parent
@@ -1323,6 +1341,278 @@ def phase_predictor_cli(workdir):
         raise AssertionError("the CLI did not answer both requests")
 
 
+# the [ogbn] phase: the ogbn_mag preset trained on the proxy graph, cut in
+# length only (the preset's n_epoch 100, n_batch 32, the whole test split
+# at vr_num 8)
+OGBN_CUTS = dict(n_epoch=2, n_batch=6, vr_num=2)
+OGBN_EVAL_NODES = 256
+# launches per layer of a train step and of a forward (validation, VR
+# evaluation) on the slice's path: the preset's caps are 0, so the legacy
+# target aux, which the softmax kernel reads; the pair kernel reduces the
+# src grouping on its runs aux and the tab grouping on the window aux, or,
+# where a tile spans more than two meta blocks, on its runs aux
+OGBN_STEP = {"live_partials": 2, "softmax": 1}
+OGBN_PAIR = 2
+OGBN_FORWARD = PREDICTOR_FORWARD
+
+
+def ogbn_expected(n_layers, steps, forwards, counts):
+    """The launches a run of ``steps`` train steps and ``forwards``
+    evaluation forwards must count; the pair's split between its two aux
+    kinds is read from ``counts``, their sum is fixed."""
+    want = {k: (OGBN_STEP.get(k, 0) * steps + OGBN_FORWARD.get(k, 0)
+                * forwards) * n_layers for k in NO_LAUNCH}
+    want["pair_window"] = counts["pair_window"]
+    want["pair_runs"] = OGBN_PAIR * n_layers * steps - counts["pair_window"]
+    return want
+
+
+def device_busy_share(prof, span):
+    """The card's busy time inside the host-side profiler span named
+    ``span``: the union of the intervals of its kernels, copies and fills
+    within the span. Device-side annotations (the GPU mirror of each
+    ``record_function`` range, named as on the host) are not device work
+    and are left out. Returns (busy ms, span ms)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    spans = [e.time_range for e in events
+             if e.name == span and e.device_type == DeviceType.CPU]
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name not in host_names)
+    busy = total = 0.0
+    for sp in spans:
+        total += sp.end - sp.start
+        cur_s = cur_e = None
+        for a, b in dev:
+            a, b = max(a, sp.start), min(b, sp.end)
+            if b <= a:
+                continue
+            if cur_e is None or a > cur_e:
+                if cur_e is not None:
+                    busy += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        if cur_e is not None:
+            busy += cur_e - cur_s
+    return busy / 1e3, total / 1e3
+
+
+def phase_ogbn(dev, graph, workdir, profile=False):
+    """The port's product path at the ogbn_mag preset's full width on the
+    proxy graph: ``run_ogbn`` trains (the loader's threads sample and sort,
+    the steps run on the card), validates, checkpoints and VR-evaluates;
+    a resumed run trains one more epoch; one producer item's loss and
+    gradient norm on the card against the CPU's plain path; the best
+    checkpoint evaluated by ``evaluate_ogbn`` in both modes and served by
+    an ``OgbnPredictor``. Every kernel launch counted and asserted."""
+    t_phase = time.perf_counter()
+    model_dir = workdir / "ogbn"
+    cfg = served_config().replace(model_dir=str(model_dir), **OGBN_CUTS)
+    L = cfg.n_layers
+    steps = cfg.n_batch * cfg.repeat
+    n_test = int(np.asarray(graph.aux["test_mask"]).sum())
+    vr_forwards = -(-min(OGBN_EVAL_NODES, n_test) // cfg.batch_size)
+    log(f"[ogbn] run_ogbn at the ogbn_mag preset (n_hid {cfg.n_hid}, "
+        f"{cfg.n_heads} heads, {L} layers, depth {cfg.sample_depth}, width "
+        f"{cfg.sample_width}, batch {cfg.batch_size}, calibrated caps, n_pool "
+        f"{cfg.n_pool}, repeat {cfg.repeat}) with --seg_pallas --edge_bf16 "
+        f"--softmax_pallas on the proxy at scale {PROXY_SCALE}; cut in "
+        f"length only: n_epoch {cfg.n_epoch} (preset 100), n_batch "
+        f"{cfg.n_batch} (32), vr_num {cfg.vr_num} (8), max_eval_nodes "
+        f"{OGBN_EVAL_NODES} of {n_test} test papers")
+    logs = []
+
+    def tee(msg):
+        logs.append(msg)
+        log(f"[ogbn]   {msg}")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_ogbn(cfg, graph, log=tee, max_eval_nodes=OGBN_EVAL_NODES,
+                   device=dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    hist = out["history"]
+    for h in hist:
+        log(f"[ogbn] epoch {h['epoch']}: loss {h['loss']:.4f}; step "
+            f"{h['step_ms']:.2f} ms mean, {h['step_ms_max']:.2f} max (the "
+            f"{steps - 1} steps after the epoch's first, by CUDA events); "
+            f"loader wait {h['wait_ms']:.2f} ms/step; train "
+            f"{h['edges_per_s']:.6g} edges/s ({h['edges']} valid edges x "
+            f"{L} layers over the epoch's {h['secs']:.2f} s, validation and "
+            f"checkpoints included); valid acc {h['valid_acc']:.4f}; edges "
+            f"dropped by the caps {h['edges_dropped']}")
+    test = out["test"]
+    log(f"[ogbn] run_ogbn in {secs:.1f} s: test acc (VR) {test['acc']:.4f}, "
+        f"seq_acc {test['seq_acc']:.4f}, n_eval {test['n_eval']}, vr_curve "
+        f"{test['vr_curve']}")
+    files = [model_dir / "ogbn_mag_metrics.jsonl",
+             model_dir / "ogbn_mag_hgt" / "state.pt",
+             model_dir / "ogbn_mag_hgt_latest" / "state.pt"]
+    missing = [str(f) for f in files if not f.exists()]
+    # a mean of finite f32 losses is finite, and a non-finite one is not
+    if len(hist) != cfg.n_epoch or not all(
+            np.isfinite(h["loss"]) for h in hist) or missing:
+        raise AssertionError(f"[ogbn] training failed: {hist}, missing "
+                             f"{missing}")
+    forwards = 4 * cfg.n_epoch + vr_forwards * cfg.vr_num
+    want = ogbn_expected(L, steps * cfg.n_epoch, forwards, counts)
+    log(f"[ogbn] kernel launches {counts} over {steps * cfg.n_epoch} steps "
+        f"and {forwards} forwards (expected per layer and step {OGBN_STEP} + "
+        f"pair {OGBN_PAIR} (runs or window: the window aux held in "
+        f"{counts['pair_window']} of {L * steps * cfg.n_epoch} layer-steps), "
+        f"per layer and forward {OGBN_FORWARD})")
+    if counts != want or counts["pair_runs"] < L * steps * cfg.n_epoch:
+        raise AssertionError(f"[ogbn] launches {counts} != {want}")
+
+    # resume: one more epoch from the latest checkpoint
+    logs.clear()
+    t0 = time.perf_counter()
+    resume = cfg.replace(n_epoch=cfg.n_epoch + 1)
+    if profile:
+        with profile_trace(str(workdir / "ogbn_trace")) as prof:
+            again = run_ogbn(resume, graph, log=tee, resume=True,
+                             max_eval_nodes=cfg.batch_size, device=dev)
+        busy, span = device_busy_share(prof, TRAIN_SPAN)
+        unprofiled = hist[-1]["step_ms"]
+        log(f"[ogbn-profile] resumed epoch under torch.profiler: the card "
+            f"busy {busy:.1f} of the {steps} train steps' {span:.1f} ms "
+            f"(kernels, copies and fills, union of intervals): idle share "
+            f"{1 - busy / span:.3f} under the profiler; busy {busy / steps:.2f}"
+            f" ms per step against the unprofiled epoch {hist[-1]['epoch']}'s"
+            f" {unprofiled:.2f} ms step: idle share "
+            f"{1 - busy / steps / unprofiled:.3f} at that pace")
+        log(f"[ogbn-profile] the resumed run's top CUDA ops (its epoch's "
+            f"{steps} steps, 4 validation and {cfg.vr_num} VR forwards):")
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25))
+    else:
+        again = run_ogbn(resume, graph, log=tee, resume=True,
+                         max_eval_nodes=cfg.batch_size, device=dev)
+    epochs = [h["epoch"] for h in again["history"]]
+    ok = epochs == [cfg.n_epoch] and any(
+        "resumed" in m and f"at epoch {cfg.n_epoch}" in m for m in logs)
+    log(f"[ogbn-resume] n_epoch {resume.n_epoch} with resume=True: trained "
+        f"epochs {epochs} in {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[ogbn-resume] did not resume for one epoch")
+
+    phase_ogbn_cpu(dev, graph, cfg)
+
+    best = str(model_dir / "ogbn_mag_hgt")
+    for mode, vr in (("variance_reduce", cfg.vr_num), ("sequential", 1)):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = evaluate_ogbn(cfg, graph, best, eval_mode=mode,
+                            max_eval_nodes=OGBN_EVAL_NODES, log=lambda s: None,
+                            device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+        n_fwd = vr_forwards * vr
+        want = scaled(OGBN_FORWARD, L * n_fwd)
+        ok = got == want and 0 <= res["acc"] <= 1 and res["n_eval"] > 0
+        log(f"[ogbn-eval] evaluate_ogbn({mode}) of the best checkpoint: acc "
+            f"{res['acc']:.4f}, seq_acc {res['seq_acc']:.4f}, n_eval "
+            f"{res['n_eval']}; {n_fwd} forwards, {ms:.0f} ms with the "
+            f"predictor's build; launches {got} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[ogbn-eval] {mode}: {got} != {want}")
+    # the same VR evaluation on a predictor of its own, each forward's
+    # host sort and forward timed (pred.stats), then one served request
+    t0 = time.perf_counter()
+    pred = OgbnPredictor(cfg, graph, best, log=lambda s: None, device=dev)
+    build_s = time.perf_counter() - t0
+    pred.stats.clear()
+    t0 = time.perf_counter()
+    vr = multi_sample_eval(pred.eval_forward, pred.params, pred.task,
+                           split="test", batch_size=cfg.batch_size,
+                           vr_num=cfg.vr_num,
+                           rng=np.random.default_rng(cfg.seed + 3),
+                           max_nodes=OGBN_EVAL_NODES)
+    ms = (time.perf_counter() - t0) * 1e3
+    n_fwd = len(pred.stats)
+    log(f"[ogbn-eval] VR evaluation on a predictor (built in {build_s:.2f} "
+        f"s): acc {vr['acc']:.4f}, {n_fwd} forwards, {ms / n_fwd:.1f} ms per "
+        f"forward with the sampler; host sort "
+        f"{np.mean([x['sort_ms'] for x in pred.stats]):.2f} ms, forward "
+        f"{np.mean([x['forward_ms'] for x in pred.stats]):.2f} ms (mean)")
+    test_nodes = np.where(np.asarray(graph.aux["test_mask"]))[0]
+    req = {"nodes": test_nodes[:3].tolist(), "vr_num": 1}
+    buf = io.StringIO()
+    served = serve_jsonl(pred, stdin=io.StringIO(json.dumps(req) + "\n"),
+                         stdout=buf, log=lambda s: None)
+    resp = json.loads(buf.getvalue())
+    ok = (served == 1 and resp.get("nodes") == req["nodes"]
+          and all(0 <= c < pred.n_classes for c in resp.get("pred", [-1])))
+    log(f"[ogbn-serve] the trained checkpoint served by an OgbnPredictor: "
+        f"test papers {req['nodes']} -> classes {resp.get('pred', resp)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[ogbn-serve] the trained checkpoint did not serve")
+    log(f"[ogbn] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_ogbn_cpu(dev, graph, cfg):
+    """One producer item (the loader's path: sample, pad, the C++ sort
+    with the backward's aux), the same starting weights, dropout 0: loss
+    and global gradient norm on the card against the CPU's plain path;
+    the step's launches counted alone."""
+    cfg = cfg.replace(dropout=0.0)
+    sampler = make_sampler(cfg, graph, log=log)
+    layout = make_layout(cfg, graph)
+    em = EdgeStaticMeta.from_layout(layout)
+    task = OgbnNodeTask(graph=graph, sampler=sampler, layout=layout,
+                        batch_size=cfg.batch_size)
+    item = _make_producer(task.make_sample_fn("train"), layout, em)(
+        np.random.default_rng(12))
+    in_dim = item.tb.sub.node_feat.shape[-1]
+    model = node_classifier(cfg, layout, in_dim, task.n_classes, seed=3)
+    res = {}
+    for role, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = model.to(device)
+        for p in m.parameters():
+            p.grad = None
+        loss_fn = task.make_loss_fn(m, em.to(device))
+
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        if role == "card":
+            torch.cuda.synchronize()
+            reset_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(None, t(item.tb.sub.node_feat),
+                       t(item.tb.sub.node_mask), item.se.to(device),
+                       t(item.tb.labels), t(item.tb.label_mask))
+        loss.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.float().norm() for p in m.parameters()])).item()
+        res[role] = (loss.item(), norm, time.perf_counter() - t0)
+        if role == "card":
+            counts = read_counts()
+    (lg, ng, _), (lc, nc, tc) = res["card"], res["cpu"]
+    want = ogbn_expected(cfg.n_layers, 1, 0, counts)
+    loss_err, norm_err = abs(lg - lc), abs(ng - nc) / max(nc, 1e-12)
+    ok = (loss_err <= CPU_TOL and norm_err <= CPU_TOL and counts == want
+          and np.isfinite([lg, ng]).all())
+    log(f"[ogbn-cpu] one producer item ({item.n_edges} valid edges, "
+        f"{item.overflow} dropped), dropout 0, TF32 off: loss {lg:.5f} on "
+        f"the card against {lc:.5f} on the CPU (|diff| {loss_err:.2e}), "
+        f"global gradient norm {ng:.5f} against {nc:.5f} (relative "
+        f"{norm_err:.2e}; tol {CPU_TOL:g} each); CPU forward+backward "
+        f"{tc:.1f} s; launches of one forward+backward {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[ogbn-cpu] the card and the CPU disagree")
+
+
 def phase_profile(fl, batch, labels, pred):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1452,6 +1742,8 @@ def main():
         phase_predictor_cpu(pred, workdir)
         phase_predictor_burst(pred)
         phase_predictor_cli(workdir)
+        ogbn_counts = phase_ogbn(dev, pred.task.graph, workdir,
+                                 profile=args.profile)
         if args.profile:
             phase_profile(fl, batch, labels, pred)
 
@@ -1460,13 +1752,16 @@ def main():
     single["launches_serve"] = serve_counts["live_partials"]
     single["launches_train"] = train_counts["live_partials"]
     single["launches_predictor"] = predictor_counts["live_partials"]
+    single["launches_ogbn"] = ogbn_counts["live_partials"]
     single["launches"] = (single["launches_serve"] + single["launches_train"]
-                          + single["launches_predictor"])
+                          + single["launches_predictor"]
+                          + single["launches_ogbn"])
     for rec in pair:
         kind = rec.pop("kind")
         rec["launches_serve"] = serve_counts[f"pair_{kind}"]
         rec["launches_train"] = train_counts[f"pair_{kind}"]
-        rec["launches"] = rec["launches_train"]
+        rec["launches_ogbn"] = ogbn_counts[f"pair_{kind}"]
+        rec["launches"] = rec["launches_train"] + rec["launches_ogbn"]
     for rec in others:
         counter = rec.pop("counter")
         if counter == "head_sum":
@@ -1477,7 +1772,9 @@ def main():
             rec["launches"] = rec["launches_serve"] + rec["launches_train"]
             if counter == "softmax":
                 rec["launches_predictor"] = predictor_counts[counter]
-                rec["launches"] += rec["launches_predictor"]
+                rec["launches_ogbn"] = ogbn_counts[counter]
+                rec["launches"] += (rec["launches_predictor"]
+                                    + rec["launches_ogbn"])
         if not rec["launches"]:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  "path")

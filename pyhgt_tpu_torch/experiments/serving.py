@@ -20,10 +20,10 @@ stdin/stdout).
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from pyhgt_tpu_torch import resolve_device
 from pyhgt_tpu_torch.config import ExperimentConfig
@@ -34,13 +34,18 @@ from pyhgt_tpu_torch.experiments.engine import (
     make_sampler,
     make_tx,
     node_classifier,
+    sorted_logprobs,
 )
 from pyhgt_tpu_torch.graph.csr import CSRGraph
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
 from pyhgt_tpu_torch.sampling.sorted_batch import sort_edges
 from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import load_checkpoint
-from pyhgt_tpu_torch.train.step import TrainState
+from pyhgt_tpu_torch.train.step import TrainState, make_eval_step
+
+# OgbnPredictor.stats keeps the records of this many latest forwards: a
+# long-lived server appends one per forward
+STATS_KEEP = 4096
 
 
 class OgbnPredictor:
@@ -60,11 +65,18 @@ class OgbnPredictor:
     the ``segment_softmax_partials`` kernels read) and, serving never
     differentiating, without the backward's aux.
 
-    ``stats`` collects one record per forward: ``sample_ms`` (sampler +
-    feature gather + ``pad_sample``), ``sort_ms`` (host sort), ``forward_ms``
-    (host->device copies, the forward, the log-probs back on the host) and
-    ``edges`` (valid edges of the batch); ``last_batch`` is the last
+    ``stats`` holds one record for each of the last :data:`STATS_KEEP`
+    forwards: ``sample_ms`` (sampler + feature gather + ``pad_sample``;
+    requests only), ``sort_ms`` (host sort), ``forward_ms`` (host->device
+    copies, the forward, the log-probs back on the host) and ``edges``
+    (valid edges of the batch); ``last_batch`` is the last request
     forward's :class:`~pyhgt_tpu_torch.tasks.base.TaskBatch`.
+
+    ``eval_forward(params, *batch_args)`` and ``params`` are what
+    :func:`~pyhgt_tpu_torch.experiments.engine.evaluate_ogbn` hands
+    :func:`~pyhgt_tpu_torch.tasks.evaluate.multi_sample_eval`, as in the
+    JAX package; ``params`` is the restored model, and evaluation and
+    requests share one forward.
     """
 
     def __init__(
@@ -101,28 +113,34 @@ class OgbnPredictor:
     def n_classes(self) -> int:
         return self.task.n_classes
 
-    def _forward(self, tb) -> np.ndarray:
-        """Log-probs ``[node_cap, n_classes]`` of one sampled batch, on the
-        host."""
-        sub = tb.sub
+    @property
+    def params(self):
+        """The restored model (the port's parameters live in it)."""
+        return self.model
+
+    def eval_forward(self, params, nf, es, et, dt, emk, nmk) -> np.ndarray:
+        """Log-probs ``[node_cap, n_classes]`` on the host of one batch
+        given as ``TaskBatch.batch_args``, through ``params`` (a model of
+        this predictor's shape; :attr:`params` is its own): the host sort
+        without the backward's aux, then the forward in eval mode."""
         t0 = time.perf_counter()
-        se = sort_edges(sub.edge_src, sub.edge_tgt, sub.edge_dt,
-                        sub.edge_mask, self.layout, self.em,
+        se = sort_edges(es, et, dt, emk, self.layout, self.em,
                         with_backward=False)
         t1 = time.perf_counter()
-        dev = self.device
-        with torch.inference_mode():
-            logp = self.model(
-                torch.as_tensor(sub.node_feat, device=dev),
-                torch.as_tensor(sub.node_mask, device=dev),
-                se.to(dev), self.em_dev,
-            ).cpu().numpy()
+        logp = sorted_logprobs(make_eval_step(params), nf, nmk, se,
+                               self.em_dev, self.device)
         t2 = time.perf_counter()
         self.stats.append({"sort_ms": (t1 - t0) * 1e3,
                            "forward_ms": (t2 - t1) * 1e3,
-                           "edges": int(sub.edge_mask.sum())})
-        self.last_batch = tb
+                           "edges": int(np.asarray(emk).sum())})
+        del self.stats[:-STATS_KEEP]
         return logp
+
+    def _forward(self, tb) -> np.ndarray:
+        """Log-probs ``[node_cap, n_classes]`` of one sampled batch, on the
+        host."""
+        self.last_batch = tb
+        return self.eval_forward(self.model, *tb.batch_args)
 
     # ------------------------------------------------------------------
     def predict_logprobs(
@@ -271,7 +289,7 @@ def serve_jsonl(
     :class:`AdaptiveWait`; ``deadline_ms`` adds the arrival-anchored p95
     queueing cap (the burst closes once its oldest request has waited
     that long, however deep the backlog)."""
-    coalesce_wait = _norm_wait(coalesce_wait, deadline_ms)
+    coalesce_wait = _norm_wait(coalesce_wait, deadline_ms, log)
     if not isinstance(coalesce_wait, AdaptiveWait) and coalesce_wait <= 0:
         return _serve_loop(
             stdin, stdout, log,
@@ -283,10 +301,12 @@ def serve_jsonl(
     )
 
 
-def _norm_wait(coalesce_wait, deadline_ms=None):
+def _norm_wait(coalesce_wait, deadline_ms=None, log=print):
     """0/positive float = fixed window; "auto" or negative float =
     :class:`AdaptiveWait` (max window = 20 ms or ``|value|``).
-    ``deadline_ms`` (adaptive only): arrival-anchored p95 queueing cap."""
+    ``deadline_ms`` (adaptive only): arrival-anchored p95 queueing cap;
+    under a fixed window it has no effect, and a warning (and a line on
+    ``log``) says so."""
     dl = deadline_ms / 1e3 if deadline_ms else None
     if coalesce_wait == "auto":
         return AdaptiveWait(deadline=dl)
@@ -296,6 +316,13 @@ def _norm_wait(coalesce_wait, deadline_ms=None):
         return coalesce_wait
     if coalesce_wait is not None and coalesce_wait < 0:
         return AdaptiveWait(max_wait=abs(coalesce_wait), deadline=dl)
+    if dl is not None:
+        msg = (f"deadline_ms={deadline_ms:g} is ignored: the deadline caps "
+               f"adaptive coalescing only, and coalesce_wait="
+               f"{coalesce_wait!r} is a fixed window (pass 'auto' or a "
+               "negative value for the adaptive wait)")
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        log(f"WARNING: {msg}")
     return coalesce_wait
 
 

@@ -1,22 +1,31 @@
-"""CLI — ``python -m pyhgt_tpu_torch.run serve --data <graph> --ckpt <dir>``.
+"""CLI — ``python -m pyhgt_tpu_torch.run <task> --data <graph> [flags]``.
 
 Counterpart of :mod:`pyhgt_tpu.run`: the same tasks, every
 :class:`~pyhgt_tpu_torch.config.ExperimentConfig` field as a flag, and the
-serve task's flags, so a serve recipe of the JAX package translates
-unchanged. What is ported is the ``serve`` task with ``--serve_task node``:
-JSON-lines requests on stdin answered on stdout (or HTTP with ``--http``)
-by an :class:`~pyhgt_tpu_torch.experiments.serving.OgbnPredictor` on the
-``ogbn_mag`` preset. Every other task exits with "not ported yet".
-``--device`` (default ``cuda``) takes the place of the JAX package's
-``--platform``: without a GPU the default raises, ``--device cpu`` runs the
-plain CPU path.
+tasks' own flags, so a recipe of the JAX package translates unchanged.
+Ported tasks, all on the ``ogbn_mag`` preset:
+
+- ``ogbn_mag``: train (:func:`~pyhgt_tpu_torch.experiments.engine.run_ogbn`:
+  the epoch loop, best and ``latest`` checkpoints and a metrics jsonl under
+  ``--model_dir``), then evaluate the test
+  split by ``--eval_mode`` (``variance_reduce`` or ``sequential``;
+  ``--task_type`` is the reference's alias); ``--plot`` writes the curves
+  PNG when matplotlib is installed;
+- ``eval_ogbn_mag --ckpt <dir>``: evaluate a checkpoint
+  (:func:`~pyhgt_tpu_torch.experiments.engine.evaluate_ogbn`);
+- ``serve --ckpt <dir>`` (``--serve_task node``): JSON-lines requests on
+  stdin answered on stdout (or HTTP with ``--http``) by an
+  :class:`~pyhgt_tpu_torch.experiments.serving.OgbnPredictor`.
+
+Every other task exits with "not ported yet". ``--device`` (default
+``cuda``) takes the place of the JAX package's ``--platform``: without a
+GPU the default raises, ``--device cpu`` runs the plain CPU path.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import os
 import sys
 
@@ -33,7 +42,16 @@ def build_parser() -> argparse.ArgumentParser:
         + ["eval_ogbn_mag", "serve", "preprocess_oag"],
     )
     p.add_argument("--ckpt", default=None,
-                   help="serve: the port's checkpoint directory")
+                   help="the port's checkpoint directory (eval_ogbn_mag / "
+                        "serve)")
+    p.add_argument("--eval_mode", "--task_type", dest="eval_mode",
+                   default="variance_reduce",
+                   choices=["variance_reduce", "sequential"],
+                   help="eval protocol; --task_type is the reference "
+                        "alias (eval_ogbn_mag.py:29-30)")
+    p.add_argument("--plot", action="store_true",
+                   help="write loss/metric curves PNG next to the "
+                        "checkpoint after training (train_ogbn_mag.py:29)")
     p.add_argument("--serve_task", default="node", choices=["node", "link"],
                    help="serve mode: node = classification over sampled "
                         "subgraphs; link = two-tower matcher top-k "
@@ -60,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(mmap-loaded); either may come from the JAX "
                         "package")
     p.add_argument("--device", default="cuda",
-                   help="torch device to serve on (default cuda, which "
+                   help="torch device to run on (default cuda, which "
                         "raises without a GPU; 'cpu' runs the plain path)")
     ref = ExperimentConfig()
     for f in dataclasses.fields(ExperimentConfig):
@@ -89,42 +107,78 @@ def load_graph(path: str):
     return CSRGraph.load(path)
 
 
+PORTED = ("ogbn_mag", "eval_ogbn_mag", "serve")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.task != "serve" or args.serve_task != "node":
+    if args.task not in PORTED or (args.task == "serve"
+                                   and args.serve_task != "node"):
         what = (args.task if args.task != "serve"
                 else f"serve --serve_task {args.serve_task}")
         raise SystemExit(f"pyhgt_tpu_torch.run: {what} is not ported yet "
-                         "(only serve --serve_task node is)")
+                         "(ogbn_mag, eval_ogbn_mag and serve --serve_task "
+                         "node are)")
     if not args.data_path:
-        raise SystemExit("--data is required for task 'serve'")
-    if not args.ckpt:
-        raise SystemExit("--ckpt required for serve")
+        raise SystemExit(f"--data is required for task {args.task!r}")
+    if args.task != "ogbn_mag" and not args.ckpt:
+        raise SystemExit(f"--ckpt required for {args.task}")
     cfg = PRESETS["ogbn_mag"]
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     overrides = {k: v for k, v in vars(args).items()
                  if k in fields and v is not None}
     cfg = cfg.replace(**overrides)
 
-    from pyhgt_tpu_torch.experiments.serving import (
-        OgbnPredictor,
-        node_answer,
-        serve_http,
-        serve_jsonl,
-    )
+    from pyhgt_tpu_torch.utils.experiment import args_print
 
-    # stdout is the JSON-lines response channel — every log line goes to
+    # serve keeps stdout a pure JSON-lines channel: every log line goes to
     # stderr so clients can json.loads each stdout line
-    err = lambda s: print(s, file=sys.stderr, flush=True)  # noqa: E731
-    err("config " + json.dumps(dataclasses.asdict(cfg)))
+    out_file = sys.stderr if args.task == "serve" else sys.stdout
+    log = lambda s: print(s, file=out_file, flush=True)  # noqa: E731
+    args_print(dataclasses.asdict(cfg), file=out_file)
     graph = load_graph(cfg.data_path)
-    pred = OgbnPredictor(cfg, graph, args.ckpt, log=err, device=args.device)
-    if args.http:
-        serve_http(node_answer(pred), port=args.http, log=err).serve_forever()
+
+    if args.task == "ogbn_mag":
+        from pyhgt_tpu_torch.experiments.engine import run_ogbn
+
+        out = run_ogbn(cfg, graph, log=log, eval_mode=args.eval_mode,
+                       device=args.device)
+        if args.plot:
+            plot(out["history"], cfg)
+    elif args.task == "eval_ogbn_mag":
+        from pyhgt_tpu_torch.experiments.engine import evaluate_ogbn
+
+        evaluate_ogbn(cfg, graph, args.ckpt, eval_mode=args.eval_mode,
+                      log=log, device=args.device)
     else:
-        serve_jsonl(pred, log=err, coalesce_wait=args.coalesce_wait,
-                    deadline_ms=args.deadline_ms)
+        from pyhgt_tpu_torch.experiments.serving import (
+            OgbnPredictor,
+            node_answer,
+            serve_http,
+            serve_jsonl,
+        )
+
+        pred = OgbnPredictor(cfg, graph, args.ckpt, log=log,
+                             device=args.device)
+        if args.http:
+            serve_http(node_answer(pred), port=args.http,
+                       log=log).serve_forever()
+        else:
+            serve_jsonl(pred, log=log, coalesce_wait=args.coalesce_wait,
+                        deadline_ms=args.deadline_ms)
     return 0
+
+
+def plot(history, cfg: ExperimentConfig) -> None:
+    """The curves PNG next to the checkpoints; without matplotlib, say so
+    (the training run has finished and its checkpoints stand)."""
+    from pyhgt_tpu_torch.utils.experiment import plot_history
+
+    png = os.path.join(cfg.model_dir, f"{cfg.task_name}_curves.png")
+    try:
+        print(f"plot: {plot_history(history, png)}")
+    except ImportError as e:
+        print(f"plot: not written, matplotlib is not installed ({e})")
 
 
 if __name__ == "__main__":

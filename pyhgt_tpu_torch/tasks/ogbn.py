@@ -1,8 +1,8 @@
 """ogbn-mag node-classification task.
 
-Counterpart of :mod:`pyhgt_tpu.tasks.ogbn` (numpy only): the same draws
-from the same generator. The loss closure (``make_loss_fn``) comes with
-the training loop.
+Counterpart of :mod:`pyhgt_tpu.tasks.ogbn`: the same draws from the same
+generator (numpy only), and the masked NLL loss closure
+(``make_loss_fn``).
 
 Reference behavior (``ogbn-mag/train_ogbn_mag.py:67-102``):
 seeds are papers sampled from the whole paper set with their years; after
@@ -88,6 +88,27 @@ class OgbnNodeTask:
         return fn
 
     # ------------------------------------------------------------------
+    def make_loss_fn(self, model, em):
+        """Masked NLL over every split-member target node in the subgraph
+        (the reference's train_mask pattern, ``train_ogbn_mag.py:155-160``).
+        ``model`` must return log-probs for the full target-type block
+        (``head_mode="full"``); ``em`` is the ``EdgeStaticMeta`` on the
+        model's device.
+
+        Returns ``loss(generator, node_feat, node_mask, se, labels,
+        label_mask)``: the forward in train mode, dropout masks drawn from
+        ``generator``. The JAX closure takes the parameters, a key and the
+        raw edge arrays; the port's model holds its parameters and reads
+        the sorted layout ``se``."""
+        from pyhgt_tpu_torch.train.step import nll_loss
+
+        def loss(generator, nf, nmk, se, labels, lmask):
+            model.train()
+            logp = model(nf, nmk, se, em, generator)
+            return nll_loss(logp, labels, mask=lmask)
+
+        return loss
+
     @staticmethod
     def accuracy(logp: np.ndarray, labels: np.ndarray, mask: np.ndarray) -> float:
         """OGB Evaluator accuracy semantics (argmax exact match)."""

@@ -1,1 +1,25 @@
-"""Losses, the train step, optimizers and schedules (counterpart of :mod:`pyhgt_tpu.train`)."""
+"""Losses, the train and eval steps, optimizers and schedules, the
+prefetch pipeline, checkpoints (counterpart of :mod:`pyhgt_tpu.train`; the
+ranking metrics come with the OAG tasks)."""
+
+from pyhgt_tpu_torch.train.loader import PrefetchLoader
+from pyhgt_tpu_torch.train.optim import (
+    cosine_schedule,
+    make_optimizer,
+    onecycle_schedule,
+)
+from pyhgt_tpu_torch.train.step import (
+    TrainState,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = [
+    "make_optimizer",
+    "cosine_schedule",
+    "onecycle_schedule",
+    "TrainState",
+    "make_train_step",
+    "make_eval_step",
+    "PrefetchLoader",
+]

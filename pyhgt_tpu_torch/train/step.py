@@ -1,12 +1,12 @@
 """Losses and the eager train step.
 
 Counterpart of :mod:`pyhgt_tpu.train.step` (``nll_loss``, ``kl_div_loss``,
-``TrainState``, ``make_train_step``): the reference epoch-loop body, forward
-→ loss → backward → clip → optimizer step → scheduler
-(``OAG/train_paper_field.py:240-256``). The JAX package traces it into one
-XLA program over a functional state; here the model and the optimizer hold
-their own state and the step runs eagerly. The gradient-accumulation variant
-(``make_train_step_acc``) is not ported yet.
+``TrainState``, ``make_train_step``, ``make_eval_step``): the reference
+epoch-loop body, forward → loss → backward → clip → optimizer step →
+scheduler (``OAG/train_paper_field.py:240-256``). The JAX package traces it
+into one XLA program over a functional state; here the model and the
+optimizer hold their own state and the step runs eagerly. The
+gradient-accumulation variant (``make_train_step_acc``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -74,3 +74,19 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
         return loss.detach()
 
     return step
+
+
+def make_eval_step(model: nn.Module):
+    """The evaluation forward of ``model``: ``forward(*args, **kw)`` runs
+    it in eval mode (no dropout) under ``torch.inference_mode()`` (no
+    autograd record). The JAX package jits a pure deterministic forward
+    here; a torch module carries its parameters and its mode, so this
+    takes the module. A train step's loss puts the model back in train
+    mode."""
+
+    def forward(*args, **kw):
+        model.eval()
+        with torch.inference_mode():
+            return model(*args, **kw)
+
+    return forward

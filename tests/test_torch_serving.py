@@ -15,6 +15,7 @@ import dataclasses
 import io
 import json
 import threading
+import warnings
 import urllib.error
 import urllib.request
 
@@ -26,6 +27,7 @@ from pyhgt_tpu_torch.config import ExperimentConfig
 from pyhgt_tpu_torch.experiments.engine import (
     make_layout, make_tx, node_classifier,
 )
+from pyhgt_tpu_torch.experiments import serving
 from pyhgt_tpu_torch.experiments.serving import (
     OgbnPredictor, node_answer, serve_http, serve_jsonl,
 )
@@ -271,6 +273,50 @@ def test_serve_jsonl(port_env, mode):
         assert wrapped.calls == [[3], [17, 42], [10**9]]
 
 
+@pytest.mark.parametrize("wait", [0.0, 0.05, "auto"])
+def test_deadline_ignored_under_a_fixed_window_warns(port_env, wait):
+    """``deadline_ms`` caps adaptive coalescing only: under a fixed window
+    (plain or coalesced) a warning and a log line say it is ignored, and
+    the requests are still answered; under ``"auto"`` nothing is said."""
+    _, _, _, pred = port_env
+    logs, out = [], io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        served = serve_jsonl(pred, stdin=io.StringIO('{"nodes": [3]}\n'),
+                             stdout=out, log=logs.append,
+                             coalesce_wait=wait, deadline_ms=25)
+    assert served == 1 and "pred" in json.loads(out.getvalue())
+    said = [w for w in caught if "deadline_ms" in str(w.message)]
+    if wait == "auto":
+        assert not said and not any("deadline" in s for s in logs)
+    else:
+        assert len(said) == 1 and said[0].category is RuntimeWarning
+        assert "ignored" in str(said[0].message)
+        assert any(s.startswith("WARNING: deadline_ms=25 is ignored")
+                   for s in logs)
+
+
+def test_predictor_stats_stay_bounded(port_env, monkeypatch):
+    """A long-lived predictor keeps the records of its last
+    ``STATS_KEEP`` forwards only; the newest record is the last one, and
+    a request still writes its ``sample_ms`` into it. The forward's model
+    call is stubbed, so the test runs many forwards cheaply."""
+    _, _, _, pred = port_env
+    keep = 5
+    monkeypatch.setattr(serving, "STATS_KEEP", keep)
+    monkeypatch.setattr(
+        serving, "sorted_logprobs",
+        lambda fwd, nf, nmk, se, em, dev: np.zeros(
+            (pred.layout.node_cap, pred.n_classes), np.float32))
+    pred.stats.clear()
+    for i in range(1, 4):
+        pred.predict_logprobs(NODES, vr_num=4, rng=np.random.default_rng(1))
+        assert len(pred.stats) == min(4 * i, keep)
+    assert "sample_ms" in pred.stats[-1]
+    assert all(s["edges"] > 0 for s in pred.stats[-keep:])
+    pred.stats.clear()
+
+
 def test_serve_http(port_env):
     _, _, _, pred = port_env
     srv = serve_http(node_answer(pred), port=0, log=lambda s: None)
@@ -297,8 +343,8 @@ def test_serve_http(port_env):
 
 
 def test_run_serve_cli(port_env, tmp_path, monkeypatch):
-    """``run.main(["serve", ...])`` answers JSON-lines on stdout; other
-    tasks exit "not ported yet"; without ``--device`` and without a GPU it
+    """``run.main(["serve", ...])`` answers JSON-lines on stdout; tasks not
+    ported exit "not ported yet"; without ``--device`` and without a GPU it
     raises instead of running on the CPU."""
     from pyhgt_tpu_torch import run
 
@@ -319,7 +365,7 @@ def test_run_serve_cli(port_env, tmp_path, monkeypatch):
     assert [len(x["pred"]) for x in got] == [2, 1]
     assert all(0 <= p < 4 for x in got for p in x["pred"])
     with pytest.raises(SystemExit, match="not ported yet"):
-        run.main(["ogbn_mag", "--data", str(tmp_path / "graph")])
+        run.main(["paper_field", "--data", str(tmp_path / "graph")])
     with pytest.raises(SystemExit, match="not ported yet"):
         run.main(["serve", "--serve_task", "link", "--data", "x", "--ckpt", "y"])
     if not torch.cuda.is_available():
