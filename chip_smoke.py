@@ -4,7 +4,8 @@
 
 Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
 ``bench`` preset (ogbn-mag reproduction widths: 4 HGT layers, n_hid 512,
-8 heads, RTE, bf16 edge stage) and checks every hand-written kernel on them:
+8 heads, RTE, bf16 edge stage), the ``ogbn_mag`` preset and the OAG
+presets, and checks every hand-written kernel on them:
 
 1. build the six CUDA kernels from ``pyhgt_tpu_torch/csrc`` (nvcc, sm_90a),
    one compiler process per source, all started together;
@@ -68,7 +69,32 @@ Drives ``pyhgt_tpu_torch`` (never JAX) through its main paths at the
    trains exactly one more epoch; one producer item's loss and global
    gradient norm on the card against the CPU's plain path (dropout 0);
    ``evaluate_ogbn`` of the best checkpoint in both modes; and that
-   checkpoint served by an ``OgbnPredictor``.
+   checkpoint served by an ``OgbnPredictor``;
+12. the OAG task family at the presets' full width (n_hid 400, 8 heads, 4
+   layers, depth 6, width 128, batch 256) with the same flags, on the OAG
+   proxy (the repo's ``examples/oag_scale_proxy.py`` build) at scale 0.1,
+   its authors named ``name{a % (n_author // 16)}``, written with
+   ``save_dir`` and read back memory-mapped; each run cut in length only
+   (1 epoch of 4 batches x ``repeat`` 2): ``[oag-field]``
+   ``run_node_classification`` at the ``paper_field`` preset with
+   ``feature_oag`` (529-wide input) and a resumed epoch, ``[oag-venue]``
+   ``run.main(["paper_venue", ...])`` (the NLL head), ``[oag-link]``
+   ``run_author_disambiguation``; per epoch the step time, the loader
+   wait, train edges/s, valid and test NDCG/MRR and the dropped edges,
+   every launch asserted (per step and per validation or test forward, as
+   on the ogbn-mag path); for the field and link runners one producer
+   item's loss, global gradient norm and forward outputs (representations,
+   and the log-probs or ``score_pairs``) against the CPU; the paper-field
+   steps' pace on items already on the card (no loader wait); and the three
+   kernels of the path (``live_partials``, ``live_partials_pair`` on the
+   runs and window aux, ``segment_softmax_partials``) held against their
+   plain versions on a real batch at the path's widths and timed;
+13. ``[link-serve]``: a ``LinkPredictor`` restored from ``[oag-link]``'s
+   best checkpoint indexes 2,048 grouped authors (ms per chunk), then
+   answers 8 JSON-lines requests of 1-256 papers through
+   ``serve_link_jsonl``, timed by part (sampler, host sort, forward, score
+   + top-k), launches asserted, the top-k scores against a float64
+   recomputation of the index product.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -76,13 +102,15 @@ last line is ``{"ok": true, "device": {...}}``. ``--profile`` also prints
 the top CUDA ops of one forward, of one train step, of one step under
 ``edge_bwd="slab"``, of one forward under ``softmax_pallas``, of one
 ``segment_softmax_partials`` call and of one predictor request by device
-time (torch.profiler), and the card's idle share over the resumed
-epoch's train steps.
+time (torch.profiler), the card's idle share over the train steps of the
+resumed ogbn-mag and paper-field epochs, and the idle share of paper-field
+steps on items already on the card (no loader wait).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import io
@@ -97,14 +125,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pyhgt_tpu_torch import run as run_cli
 from pyhgt_tpu_torch.bench import make_flagship_trainer
 from pyhgt_tpu_torch.config import PRESETS
+from pyhgt_tpu_torch.datasets.features import feature_oag, oag_in_dim
 from pyhgt_tpu_torch.datasets.mag_proxy import build as build_proxy
+from pyhgt_tpu_torch.datasets.oag_proxy import build as build_oag_proxy
 from pyhgt_tpu_torch.experiments.engine import (
-    TRAIN_SPAN, _make_producer, evaluate_ogbn, make_layout, make_sampler,
-    make_tx, node_classifier, run_ogbn,
+    OAG_SPLITS, TRAIN_SPAN, _label_step_args, _loader, _make_producer,
+    _producer_for, _train_epoch, evaluate_ogbn, link_matcher, make_layout,
+    make_sampler, make_tx, node_classifier, run_author_disambiguation,
+    run_node_classification, run_ogbn,
 )
-from pyhgt_tpu_torch.experiments.serving import OgbnPredictor, serve_jsonl
+from pyhgt_tpu_torch.experiments.serving import (
+    LinkPredictor, OgbnPredictor, serve_jsonl, serve_link_jsonl,
+)
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
 from pyhgt_tpu_torch.graph.csr import CSRGraph
 from pyhgt_tpu_torch.native import build as native_build
@@ -119,12 +154,17 @@ from pyhgt_tpu_torch.sampling.batch import pad_sample
 from pyhgt_tpu_torch.sampling.sorted_batch import (
     pallas_seg_aux_split, sort_batch, sort_edges,
 )
-from pyhgt_tpu_torch.tasks.base import gather_features
+from pyhgt_tpu_torch.tasks.base import build_time_split_pairs, gather_features
 from pyhgt_tpu_torch.tasks.evaluate import multi_sample_eval
+from pyhgt_tpu_torch.tasks.link_prediction import (
+    LinkPredictionTask, build_link_pairs, build_name_groups,
+    make_link_loss_fn,
+)
+from pyhgt_tpu_torch.tasks.node_classification import NodeClassificationTask
 from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import save_checkpoint
 from pyhgt_tpu_torch.train.log import profile_trace
-from pyhgt_tpu_torch.train.step import TrainState
+from pyhgt_tpu_torch.train.step import TrainState, make_train_step
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1572,45 +1612,709 @@ def phase_ogbn_cpu(dev, graph, cfg):
                         batch_size=cfg.batch_size)
     item = _make_producer(task.make_sample_fn("train"), layout, em)(
         np.random.default_rng(12))
-    in_dim = item.tb.sub.node_feat.shape[-1]
-    model = node_classifier(cfg, layout, in_dim, task.n_classes, seed=3)
-    res = {}
+    tb = item.tb
+    log(f"[ogbn-cpu] one producer item: {item.n_edges} valid edges, "
+        f"{item.overflow} dropped (the uncalibrated layout)")
+    model = node_classifier(cfg, layout, tb.sub.node_feat.shape[-1],
+                            task.n_classes, seed=3)
+
+    def args(device):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return (t(tb.sub.node_feat), t(tb.sub.node_mask), item.se.to(device),
+                t(tb.labels), t(tb.label_mask))
+
+    card_against_cpu("ogbn-cpu", dev, model,
+                     lambda m, d: task.make_loss_fn(m, em.to(d)), args,
+                     cfg.n_layers)
+
+
+# the OAG phases: the OAG proxy (the repo's examples/oag_scale_proxy.py
+# build) cut to this scale of its OAG-CS magnitudes: ~54k papers, ~51k
+# authors, ~4.5k fields, ~600 venues, ~900 affiliations, ~200 L2 label
+# fields; per-type degrees, so fan-outs, are full scale's
+OAG_SCALE = 0.1
+# the proxy has no author names: as the toy graph of the tests names its
+# authors, name{a % (n_author // AUTHORS_PER_NAME)}
+AUTHORS_PER_NAME = 16
+# each OAG runner cut in length only: 1 epoch of n_batch 4 x the preset's
+# repeat 2 (the presets: 200 epochs of 32 x 2)
+OAG_CUTS = dict(n_epoch=1, n_batch=4)
+OAG_FLAGS = dict(seg_pallas=True, edge_bf16=True, softmax_pallas=True)
+# forwards of an OAG run: one validation batch per epoch, 10 test batches
+OAG_TEST_BATCHES = 10
+# [link-serve]: the index over this many grouped authors, then requests of
+# these sizes (papers), one at a time after one warm-up
+LINK_INDEX_AUTHORS = 2048
+LINK_REQUESTS = [1, 4, 16, 64, 128, 256, 32, 8]
+LINK_K = 10
+
+
+def oag_config(task, workdir):
+    """The task's preset (n_hid 400, 8 heads, 4 layers, depth 6, width
+    128, batch 256) with the slice's flags, cut in length only."""
+    return PRESETS[task].replace(model_dir=str(workdir / task), **OAG_FLAGS,
+                                 **OAG_CUTS)
+
+
+def oag_graph(workdir):
+    """Build the proxy, name its authors, write it with ``save_dir`` and
+    read it back memory-mapped, as ``run --data`` reads it."""
+    t0 = time.perf_counter()
+    g = build_oag_proxy(OAG_SCALE, seed=0)
+    n_author = g.num_nodes["author"]
+    n_names = n_author // AUTHORS_PER_NAME
+    g.features["author"]["name"] = np.array(
+        [f"name{a % n_names}" for a in range(n_author)])
+    t1 = time.perf_counter()
+    g.save_dir(str(workdir / "oag_graph"))
+    del g
+    g = CSRGraph.load_dir(str(workdir / "oag_graph"), mmap=True)
+    t2 = time.perf_counter()
+    n_l2 = int((np.diff(g.adj[OAG_FIELD_LABEL].indptr) > 0).sum())
+    log(f"[oag] proxy at scale {OAG_SCALE}: {g}; {n_l2} L2 label fields, "
+        f"paper input {oag_in_dim(g)}; {n_names} author names; build "
+        f"{t1 - t0:.2f} s, save_dir + load_dir(mmap) {t2 - t1:.2f} s")
+    if oag_in_dim(g) != 529:
+        raise AssertionError("the proxy lost the OAG input width")
+    groups = build_name_groups(g)
+    pairs = build_link_pairs(g, groups, OAG_SPLITS)
+    names = {k: len(v) for k, v in pairs.items()}
+    n_pairs = {k: sum(len(x) for x in v.values()) for k, v in pairs.items()}
+    need = PRESETS["author_disambiguation"].batch_size // 4
+    log(f"[oag] author disambiguation: {len(groups)} name groups of at least "
+        f"4 authors with 2+ first-authored papers ({sum(map(len, groups.values()))}"
+        f" authors); names per split {names}, (paper, author) pairs per "
+        f"split {n_pairs}; at least {need} names needed per split")
+    if min(names.values()) < need:
+        raise AssertionError("a split has too few names for a batch")
+    return g
+
+
+OAG_FIELD_LABEL = ("field", "paper", "PF_in_L2")
+
+
+def layout_line(logs):
+    """The runner's own ``layout:`` log line."""
+    return next(m for m in logs if m.startswith("layout:"))
+
+
+def oag_launches(tag, counts, cfg, steps, forwards):
+    """Assert the launches of ``steps`` train steps and ``forwards``
+    evaluation forwards on the OAG path (the presets' caps are 0: the
+    legacy target aux, as on the ogbn-mag path)."""
+    want = ogbn_expected(cfg.n_layers, steps, forwards, counts)
+    L = cfg.n_layers
+    ok = counts == want and counts["pair_runs"] >= L * steps
+    log(f"[{tag}] kernel launches {counts} over {steps} steps and "
+        f"{forwards} forwards (expected per layer and step {OGBN_STEP} + pair "
+        f"{OGBN_PAIR}: the window aux held in {counts['pair_window']} of "
+        f"{L * steps} layer-steps; per layer and forward {OGBN_FORWARD}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] launches {counts} != {want}")
+
+
+def epoch_lines(tag, out, cfg):
+    steps = cfg.n_batch * cfg.repeat
+    for h in out["history"]:
+        log(f"[{tag}] epoch {h['epoch']}: loss {h['loss']:.4f}; step "
+            f"{h['step_ms']:.2f} ms mean, {h['step_ms_max']:.2f} max (the "
+            f"{steps - 1} steps after the epoch's first, by CUDA events); "
+            f"loader wait {h['wait_ms']:.2f} ms/step; train "
+            f"{h['edges_per_s']:.6g} edges/s ({h['edges']} valid edges x "
+            f"{cfg.n_layers} layers over the epoch's {h['secs']:.2f} s, "
+            f"validation and checkpoints included); valid NDCG "
+            f"{h['valid_ndcg']:.4f}, MRR {h['valid_mrr']:.4f}; edges dropped "
+            f"by the caps {h['edges_dropped']}")
+    log(f"[{tag}] test (mean of {OAG_TEST_BATCHES} batches) NDCG "
+        f"{out['test_ndcg']:.4f}, MRR {out['test_mrr']:.4f}")
+    hist = out["history"]
+    if not hist or not all(np.isfinite(h["loss"]) for h in hist) or not (
+            0 <= out["test_ndcg"] <= 1 and 0 <= out["test_mrr"] <= 1):
+        raise AssertionError(f"[{tag}] training failed: {hist}")
+
+
+def per_type_nodes(item, layout):
+    """Live nodes per type of one batch."""
+    mask = np.asarray(item.tb.sub.node_mask)
+    return {t: int(mask[i].sum()) for i, t in enumerate(layout.schema.node_types)}
+
+
+def card_against_cpu(tag, dev, model, loss_fn, args, n_layers,
+                     outputs=None):
+    """``loss_fn(m, em_on_device)(None, *args(device))`` forward and
+    backward with ``model``'s weights on the card and on the CPU (dropout
+    0, TF32 off): the loss and the global gradient norm within CPU_TOL, and
+    the launches of one train step on the card. ``outputs(m, device)``, when
+    given, names tensors of the forward (its live rows) that must agree to
+    CPU_TOL as max |card - CPU| over max |CPU|: a loss can sit at a value
+    that does not depend on them. Returns the card's counts."""
+    res, outs = {}, {}
     for role, device in (("card", dev), ("cpu", torch.device("cpu"))):
         m = model.to(device)
         for p in m.parameters():
             p.grad = None
-        loss_fn = task.make_loss_fn(m, em.to(device))
-
-        def t(a):
-            return torch.as_tensor(a, device=device)
-
         if role == "card":
             torch.cuda.synchronize()
             reset_counts()
         t0 = time.perf_counter()
-        loss = loss_fn(None, t(item.tb.sub.node_feat),
-                       t(item.tb.sub.node_mask), item.se.to(device),
-                       t(item.tb.labels), t(item.tb.label_mask))
+        loss = loss_fn(m, device)(None, *args(device))
         loss.backward()
         norm = torch.linalg.vector_norm(torch.stack(
             [p.grad.float().norm() for p in m.parameters()])).item()
         res[role] = (loss.item(), norm, time.perf_counter() - t0)
         if role == "card":
             counts = read_counts()
+        if outputs is not None:
+            with torch.no_grad():
+                outs[role] = {k: v.float().cpu()
+                              for k, v in outputs(m, device).items()}
     (lg, ng, _), (lc, nc, tc) = res["card"], res["cpu"]
-    want = ogbn_expected(cfg.n_layers, 1, 0, counts)
+    want = ogbn_expected(n_layers, 1, 0, counts)
     loss_err, norm_err = abs(lg - lc), abs(ng - nc) / max(nc, 1e-12)
     ok = (loss_err <= CPU_TOL and norm_err <= CPU_TOL and counts == want
           and np.isfinite([lg, ng]).all())
-    log(f"[ogbn-cpu] one producer item ({item.n_edges} valid edges, "
-        f"{item.overflow} dropped), dropout 0, TF32 off: loss {lg:.5f} on "
-        f"the card against {lc:.5f} on the CPU (|diff| {loss_err:.2e}), "
-        f"global gradient norm {ng:.5f} against {nc:.5f} (relative "
-        f"{norm_err:.2e}; tol {CPU_TOL:g} each); CPU forward+backward "
-        f"{tc:.1f} s; launches of one forward+backward {counts} "
+    out_text = ""
+    for k, want_t in outs.get("cpu", {}).items():
+        got_t = outs["card"][k]
+        scale = want_t.abs().max().item()
+        err = (got_t - want_t).abs().max().item() / max(scale, 1e-30)
+        good = (got_t.shape == want_t.shape and scale > 0
+                and bool(torch.isfinite(got_t).all()) and err <= CPU_TOL)
+        ok = ok and good
+        out_text += (f"; {k} {tuple(want_t.shape)}: max |card - CPU| over "
+                     f"max |CPU| ({scale:.4g}) {err:.2e}"
+                     f"{'' if good else ' FAIL'}")
+    log(f"[{tag}] dropout 0, TF32 off: loss {lg:.5f} on the card against "
+        f"{lc:.5f} on the CPU (|diff| {loss_err:.2e}), global gradient norm "
+        f"{ng:.5f} against {nc:.5f} (relative {norm_err:.2e}){out_text} (tol "
+        f"{CPU_TOL:g} each); CPU forward+backward {tc:.1f} s; launches of "
+        f"one forward+backward {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the card and the CPU disagree")
+    return counts
+
+
+def prefilled_epoch(tag, dev, cfg, task, layout, em, pairs, in_dim,
+                    profile, workdir):
+    """The train steps' pace with the loader taken out: the runners' own
+    epoch code (``_train_epoch``) over ``n_batch x repeat`` items that a
+    PrefetchLoader made and copied to the card before the first step, on a
+    fresh seeds-head model at ``cfg``, three times (the first warms).
+    Prints the step by CUDA events and by the host clock; under
+    ``--profile`` a fourth pass under torch.profiler gives the card's busy
+    time over the same steps, and the idle share of the unprofiled step is
+    1 - busy / step."""
+    steps = cfg.n_batch * cfg.repeat
+    model = node_classifier(cfg, layout, in_dim, task.n_classes, seed=3,
+                            head_mode="seeds").to(dev)
+    step = make_train_step(task.make_loss_fn(model, em.to(dev)),
+                           make_tx(cfg, model.named_parameters(), steps))
+    producer = _producer_for(
+        cfg, task.make_sample_fn(pairs, OAG_SPLITS["train"]), layout, em)
+    with _loader(producer, cfg, dev, {}) as loader:
+        items = loader.take(steps)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev)
+    step_args = _label_step_args(dev)
+
+    def epoch(i):
+        t0 = time.perf_counter()
+        loss, _, _, timing = _train_epoch(step, iter(items), cfg, i, gen,
+                                          dev, step_args)
+        if not np.isfinite(loss):
+            raise AssertionError(f"[{tag}-prefilled] loss {loss}")
+        return timing, (time.perf_counter() - t0) * 1e3 / steps
+
+    runs = [epoch(i) for i in range(3)]
+    for i, (timing, wall) in enumerate(runs):
+        log(f"[{tag}-prefilled] pass {i}{' (warm-up)' if i == 0 else ''}: "
+            f"{steps} steps on items already on the card: step "
+            f"{timing['step_ms']:.2f} ms mean, {timing['step_ms_max']:.2f} "
+            f"max (CUDA events, the {steps - 1} steps after the first); "
+            f"{wall:.2f} ms per step by the host clock, the loss read "
+            f"included; loader wait {timing['wait_ms']:.3f} ms/step")
+    if profile:
+        with profile_trace(str(workdir / f"{tag}_prefilled_trace")) as prof:
+            epoch(3)
+        busy, span = device_busy_share(prof, TRAIN_SPAN)
+        step_ms = runs[-1][0]["step_ms"]
+        log(f"[{tag}-prefilled-profile] the card busy {busy:.2f} ms of the "
+            f"{steps} steps' {span:.2f} ms span under torch.profiler "
+            f"({busy / steps:.2f} ms per step); against the unprofiled pass "
+            f"2 step of {step_ms:.2f} ms: idle share "
+            f"{1 - busy / steps / step_ms:.3f}")
+
+
+def oag_item(cfg, graph, task, pairs, seeds_fn):
+    """One producer item of ``task`` on ``pairs`` (the loader's path:
+    sample, pad, the C++ sort with the backward's aux), on a layout
+    calibrated from ``seeds_fn`` as the runner calibrates its own (the
+    draws are unseeded, so the caps may differ a little): returns (item,
+    layout, em)."""
+    layout = make_layout(cfg, graph, sampler=task.sampler, seeds_fn=seeds_fn)
+    task.layout = layout
+    em = EdgeStaticMeta.from_layout(layout)
+    item = _make_producer(task.make_sample_fn(pairs, OAG_SPLITS["train"]),
+                          layout, em)(np.random.default_rng(12))
+    return item, layout, em
+
+
+def phase_oag_kernels(dev, se, cfg):
+    """The three kernels of the OAG path held against their plain versions
+    on one real batch at its widths (rows of n_hid = 400, bf16 and f32;
+    logits of 8 heads), and timed in bf16 beside their bounds: a record per
+    kernel, with its shapes."""
+    D, H = cfg.n_hid, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(7)
+    E = se.pseg_tgt.loc.size
+    b1 = torch.randn(E, D, generator=gen, device=dev)
+    b2 = torch.randn(E, D, generator=gen, device=dev)
+    out = {}
+    gaux = se.pseg_tgt.to(dev)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        x = b1.to(dtype)
+        got, want = live_partials(x, gaux), live_partials_plain(x, gaux)
+        abs_sum = live_partials_plain(x.abs(), gaux)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            got, want, abs_sum, f"[oag] live_partials legacy W={gaux.w} "
+            f"{str(dtype)[6:]} {tuple(x.shape)}"))
+    x = b1.bfloat16()
+    rows = out_rows(gaux)
+    zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
+    x32 = x.float()
+    ms = cuda_ms(lambda: live_partials(x, gaux))
+    plain_ms = cuda_ms(lambda: live_partials_plain(x, gaux))
+    library_ms = cuda_ms(lambda: torch.index_add(zeros, 0, rows, x32))
+    bound, nbytes = bound_ms(x, gaux)
+    time_line(f"[oag] live_partials bf16 {tuple(x.shape)} legacy W={gaux.w}",
+              ms, nbytes, plain_ms, "index_add (f32 source)", library_ms,
+              bound)
+    out["live_partials"] = dict(oag_shape=list(x.shape), oag_max_abs_err=err,
+                                oag_ms=ms, oag_plain_ms=plain_ms,
+                                oag_bound_ms=bound,
+                                oag_library_ms=library_ms)
+
+    auxes = {"runs": ("src-runs", se.pseg_src)}
+    if se.ptab_src is not None:
+        auxes["window"] = ("tab-window", se.ptab_src)
+    for kind, (name, aux) in auxes.items():
+        gaux = aux.to(dev)
+        err = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            d1, d2 = b1.to(dtype), b2.to(dtype)
+            got = live_partials_pair(d1, d2, gaux)
+            want = live_partials_pair_plain(d1, d2, gaux)
+            abs_sum = live_partials_pair_plain(d1.abs(), d2.abs(), gaux)
+            torch.cuda.synchronize()
+            for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
+                err = max(err, check_close(
+                    g, w, a, f"[oag] live_partials_pair[{i}] {name} "
+                    f"W={aux.w} V={aux.v} {str(dtype)[6:]} {tuple(d1.shape)}"))
+        d1, d2 = b1.bfloat16(), b2.bfloat16()
+        f1, f2 = d1.float(), d2.float()
+        rows = out_rows(gaux)
+        zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
+        ms = cuda_ms(lambda: live_partials_pair(d1, d2, gaux))
+        plain_ms = cuda_ms(lambda: live_partials_pair_plain(d1, d2, gaux))
+        library_ms = cuda_ms(lambda: (torch.index_add(zeros, 0, rows, f1),
+                                      torch.index_add(zeros, 0, rows, f2)))
+        bound, nbytes = bound_ms(d1, gaux, n_tensors=2)
+        time_line(f"[oag] live_partials_pair {name} bf16 2 x "
+                  f"{tuple(d1.shape)} W={gaux.w} V={gaux.v}", ms, nbytes,
+                  plain_ms, "two index_add (f32 sources)", library_ms, bound)
+        out[f"pair_{kind}"] = dict(
+            oag_shape=list(d1.shape), oag_max_abs_err=err, oag_ms=ms,
+            oag_plain_ms=plain_ms, oag_bound_ms=bound,
+            oag_library_ms=library_ms)
+
+    gaux = se.pseg_tgt.to(dev)
+    att = torch.randn(E, H, generator=gen, device=dev) * 4
+    mask = torch.as_tensor(se.edge_mask, device=dev)
+    att = torch.where(mask[:, None], att, torch.full_like(att, -1e30))
+    m, s = ps.segment_softmax_partials(att, gaux)
+    pm, psum = ps.segment_softmax_partials_plain(att, gaux)
+    torch.cuda.synchronize()
+    m_equal = bool(torch.equal(m, pm))
+    err = (s - psum).abs().max().item()
+    ok = m_equal and bool(((s - psum).abs() <= 1e-5 * psum.abs()).all())
+    log(f"[kernel] [oag] segment_softmax_partials legacy W={gaux.w} att "
+        f"{tuple(att.shape)} ({int((~mask).sum())} masked rows): max "
+        f"bit-equal {m_equal}, sums max_abs_err {err:.3e} (tol 1e-5 x "
+        f"|value|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[oag] segment_softmax_partials disagrees with "
+                             "its plain version")
+    rows = out_rows(gaux)
+    idx = rows[:, None].expand(-1, H)
+    ex = torch.exp(torch.clamp(att - pm[rows], max=80.0))
+    zeros = torch.zeros_like(pm)
+    ms = cuda_ms(lambda: ps.segment_softmax_partials(att, gaux))
+    plain_ms = cuda_ms(lambda: ps.segment_softmax_partials_plain(att, gaux))
+    library_ms = cuda_ms(lambda: (
+        torch.scatter_reduce(zeros, 0, idx, att, "amax", include_self=False),
+        torch.index_add(zeros, 0, rows, ex)))
+    nbytes = (att.numel() * 4 + gaux.loc.numel() * 4 + gaux.loc.shape[0] * 4
+              + 2 * m.numel() * 4)
+    bound = max(nbytes / HBM_BYTES_PER_S, 5 * att.numel() / F32_FLOPS) * 1e3
+    time_line(f"[oag] segment_softmax_partials att {tuple(att.shape)} "
+              f"W={gaux.w} (eager wrapper)", ms, nbytes, plain_ms,
+              "scatter_reduce(amax) + index_add of ready exps", library_ms,
+              bound)
+    out["softmax"] = dict(oag_shape=list(att.shape), oag_max_abs_err=err,
+                          oag_ms=ms, oag_plain_ms=plain_ms,
+                          oag_bound_ms=bound, oag_library_ms=library_ms)
+    return out
+
+
+def phase_oag_field(dev, graph, workdir, profile=False):
+    """``run_node_classification`` at the paper_field preset's full width
+    with the slice's flags and ``feature_oag`` (KL over the multi-hot L2
+    fields): 1 epoch, its validation batch and 10 test batches, launches
+    asserted; a resumed run of one more epoch (under ``--profile`` the
+    card's busy time and the loader wait over its train steps); one
+    producer item's loss, gradient norm, representations and log-probs
+    against the CPU; the steps' pace on items already on the card
+    (:func:`prefilled_epoch`, and under ``--profile`` the idle share at that
+    pace); the three kernels at the path's widths on that item. Returns the
+    launch counts and the kernels' records."""
+    t_phase = time.perf_counter()
+    cfg = oag_config("paper_field", workdir)
+    steps = cfg.n_batch * cfg.repeat
+    log(f"[oag-field] run_node_classification at the paper_field preset "
+        f"(n_hid {cfg.n_hid}, {cfg.n_heads} heads, {cfg.n_layers} layers, "
+        f"depth {cfg.sample_depth}, width {cfg.sample_width}, batch "
+        f"{cfg.batch_size}, calibrated caps, n_pool {cfg.n_pool}) with "
+        f"--seg_pallas --edge_bf16 --softmax_pallas --features oag on the "
+        f"OAG proxy; cut in length only: n_epoch {cfg.n_epoch}, n_batch "
+        f"{cfg.n_batch} x repeat {cfg.repeat}")
+    logs = []
+
+    def tee(msg):
+        logs.append(msg)
+        log(f"[oag-field]   {msg}")
+
+    kw = dict(label_meta=OAG_FIELD_LABEL, multi_label=True,
+              feature_fn=feature_oag, log=tee, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_node_classification(cfg, graph, **kw)
+    counts = read_counts()
+    log(f"[oag-field] run_node_classification in "
+        f"{time.perf_counter() - t0:.1f} s; {layout_line(logs)}")
+    epoch_lines("oag-field", out, cfg)
+    oag_launches("oag-field", counts, cfg, steps * cfg.n_epoch,
+                 cfg.n_epoch + OAG_TEST_BATCHES)
+
+    logs.clear()
+    resume = cfg.replace(n_epoch=cfg.n_epoch + 1)
+    reset_counts()
+    t0 = time.perf_counter()
+    if profile:
+        with profile_trace(str(workdir / "oag_field_trace")) as prof:
+            again = run_node_classification(resume, graph, resume=True, **kw)
+        busy, span = device_busy_share(prof, TRAIN_SPAN)
+        h = again["history"][-1]
+        wait = h["wait_ms"] * steps
+        log(f"[oag-field-profile] resumed epoch under torch.profiler: the "
+            f"card busy {busy:.1f} of the {steps} train steps' {span:.1f} ms "
+            f"span ({busy / steps:.2f} ms per step): idle share "
+            f"{1 - busy / span:.3f} under the profiler; of the span the "
+            f"consumer waited {wait:.1f} ms on the loader (share "
+            f"{wait / span:.3f}); the profiled step {h['step_ms']:.2f} ms "
+            f"(CUDA events; the pace without the loader: "
+            f"[oag-field-prefilled])")
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25))
+    else:
+        again = run_node_classification(resume, graph, resume=True, **kw)
+    resumed = read_counts()
+    epochs = [h["epoch"] for h in again["history"]]
+    ok = epochs == [cfg.n_epoch] and any(
+        "resumed" in m and f"at epoch {cfg.n_epoch}" in m for m in logs)
+    log(f"[oag-field-resume] n_epoch {resume.n_epoch} with resume=True: "
+        f"trained epochs {epochs} in {time.perf_counter() - t0:.1f} s "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[ogbn-cpu] the card and the CPU disagree")
+        raise AssertionError("[oag-field-resume] did not resume for one epoch")
+    epoch_lines("oag-field-resume", again, cfg)
+    oag_launches("oag-field-resume", resumed, cfg, steps,
+                 1 + OAG_TEST_BATCHES)
+    total = {k: counts[k] + resumed[k] for k in counts}
+
+    c0 = cfg.replace(dropout=0.0)
+    task = NodeClassificationTask(
+        graph=graph, sampler=make_sampler(c0, graph, log=log), layout=None,
+        target_type="paper", label_meta=OAG_FIELD_LABEL,
+        batch_size=c0.batch_size, feature_fn=feature_oag)
+    pairs = build_time_split_pairs(graph, task.rev_label_meta,
+                                   OAG_SPLITS)["train"]
+    crng = np.random.default_rng(c0.seed + 7)
+    item, layout, em = oag_item(
+        c0, graph, task, pairs, lambda: task.build_seeds(pairs, crng)[0])
+    log(f"[oag-field-cpu] one producer item on a calibrated layout (node cap "
+        f"{layout.node_cap}, {layout.num_edges} padded edges): "
+        f"{item.n_edges} valid edges, {item.overflow} dropped, live nodes "
+        f"per type {per_type_nodes(item, layout)}, labels "
+        f"{tuple(item.tb.labels.shape)} over {task.n_classes} L2 fields")
+    model = node_classifier(c0, layout, oag_in_dim(graph), task.n_classes,
+                            seed=3, head_mode="seeds")
+    tb = item.tb
+
+    def args(device):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return (t(tb.sub.node_feat), t(tb.sub.node_mask), item.se.to(device),
+                t(tb.labels), t(tb.label_mask))
+
+    live = torch.as_tensor(tb.sub.node_mask)
+    seeds = torch.as_tensor(tb.label_mask)
+
+    def outputs(m, d):
+        a = args(d)[:3]
+        return {"representations (live rows)":
+                m.representations(*a, em.to(d))[live.to(d)],
+                "log-probs (live seeds)": m(*a, em.to(d))[seeds.to(d)]}
+
+    card_against_cpu("oag-field-cpu", dev, model,
+                     lambda m, d: task.make_loss_fn(m, em.to(d)), args,
+                     c0.n_layers, outputs)
+    prefilled_epoch("oag-field", dev, cfg, task, layout, em, pairs,
+                    oag_in_dim(graph), profile, workdir)
+    kernels = phase_oag_kernels(dev, item.se, cfg)
+    log(f"[oag-field] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total, kernels
+
+
+def phase_oag_venue(dev, workdir):
+    """``python -m pyhgt_tpu_torch.run paper_venue`` in process on the
+    proxy's save_dir with the slice's flags for one short epoch: the NLL
+    head over the venues."""
+    cfg = oag_config("paper_venue", workdir).replace(n_batch=2)
+    argv = ["paper_venue", "--data", str(workdir / "oag_graph"),
+            "--device", dev.type, "--model_dir", cfg.model_dir,
+            "--n_epoch", "1", "--n_batch", str(cfg.n_batch), "--seg_pallas",
+            "--edge_bf16", "--softmax_pallas"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_cli.main(argv)
+    counts = read_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("layout:", "epoch", "test NDCG")):
+            log(f"[oag-venue]   {line}")
+    ok = (rc == 0 and any(l.startswith("epoch 0: loss") for l in lines)
+          and (Path(cfg.model_dir) / "paper_venue_hgt" / "state.pt").exists())
+    log(f"[oag-venue] run.main({' '.join(argv[:1] + argv[3:])}) exit "
+        f"{rc} in {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        log("\n".join(lines[-40:]))
+        raise AssertionError("[oag-venue] paper_venue did not train")
+    oag_launches("oag-venue", counts, cfg, cfg.n_batch * cfg.repeat,
+                 1 + OAG_TEST_BATCHES)
+    return counts
+
+
+def phase_oag_link(dev, graph, workdir):
+    """``run_author_disambiguation`` at its preset's full width with the
+    slice's flags: 1 epoch, its validation batch and 10 test batches,
+    launches asserted; one producer item's grouped loss, gradient norm,
+    representations and ``score_pairs`` against the CPU (at initial weights
+    the scores are near 0 and the loss near 1 whatever the
+    representations, so the forward's outputs are compared on their own)."""
+    t_phase = time.perf_counter()
+    cfg = oag_config("author_disambiguation", workdir)
+    steps = cfg.n_batch * cfg.repeat
+    log(f"[oag-link] run_author_disambiguation at its preset (n_hid "
+        f"{cfg.n_hid}, {cfg.n_heads} heads, {cfg.n_layers} layers, depth "
+        f"{cfg.sample_depth}, width {cfg.sample_width}, batch "
+        f"{cfg.batch_size} papers of {cfg.batch_size // 4} names, groups "
+        f"padded to 32, calibrated caps) with --seg_pallas --edge_bf16 "
+        f"--softmax_pallas; n_epoch {cfg.n_epoch}, n_batch {cfg.n_batch} x "
+        f"repeat {cfg.repeat}")
+    logs = []
+
+    def tee(msg):
+        logs.append(msg)
+        log(f"[oag-link]   {msg}")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_author_disambiguation(cfg, graph, log=tee, device=dev)
+    counts = read_counts()
+    log(f"[oag-link] run_author_disambiguation in "
+        f"{time.perf_counter() - t0:.1f} s; {layout_line(logs)}")
+    epoch_lines("oag-link", out, cfg)
+    oag_launches("oag-link", counts, cfg, steps * cfg.n_epoch,
+                 cfg.n_epoch + OAG_TEST_BATCHES)
+    best = Path(cfg.model_dir) / "author_disambiguation_hgt"
+    if not (best / "state.pt").exists():
+        raise AssertionError("[oag-link] no best checkpoint")
+
+    c0 = cfg.replace(dropout=0.0)
+    groups = build_name_groups(graph)
+    pairs = build_link_pairs(graph, groups, OAG_SPLITS)
+    task = LinkPredictionTask(graph=graph,
+                              sampler=make_sampler(c0, graph, log=log),
+                              layout=None, groups=groups,
+                              batch_size=c0.batch_size)
+    crng = np.random.default_rng(c0.seed + 7)
+    item, layout, em = oag_item(
+        c0, graph, task, pairs["train"], lambda: task.build_seeds(
+            pairs["train"], OAG_SPLITS["train"], crng)[0])
+    tb = item.tb
+    log(f"[oag-link-cpu] one producer item on a calibrated layout (node cap "
+        f"{layout.node_cap}, {layout.num_edges} padded edges): "
+        f"{item.n_edges} valid edges, {item.overflow} dropped, "
+        f"{int(tb.query_mask.sum())} live query papers, "
+        f"{int(tb.cand_mask.sum())} candidates; live nodes per type "
+        f"{per_type_nodes(item, layout)}")
+    model = link_matcher(c0, layout, tb.sub.node_feat.shape[-1], seed=3)
+
+    def args(device):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return (t(tb.sub.node_feat), t(tb.sub.node_mask), item.se.to(device),
+                t(tb.cand_idx), t(tb.cand_mask), t(tb.query_mask).float())
+
+    live = torch.as_tensor(tb.sub.node_mask)
+    pair_live = torch.as_tensor(tb.query_mask[:, None] & tb.cand_mask)
+
+    def outputs(m, d):
+        a = args(d)
+        return {"representations (live rows)":
+                m.gnn(*a[:3], em.to(d))[live.to(d)],
+                "score_pairs (live pairs)":
+                m.score_pairs(*a[:3], em.to(d), a[3])[pair_live.to(d)]}
+
+    card_against_cpu("oag-link-cpu", dev, model,
+                     lambda m, d: make_link_loss_fn(m, em.to(d)), args,
+                     c0.n_layers, outputs)
+    log(f"[oag-link] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts, str(best)
+
+
+def phase_link_serve(dev, graph, ckpt, workdir):
+    """A LinkPredictor restored from [oag-link]'s best checkpoint: the
+    index over 2,048 grouped authors, then 8 JSON-lines requests of 1-256
+    papers through ``serve_link_jsonl`` one at a time after a warm-up,
+    timed by part; the top-k against a plain float64 recomputation of the
+    index product; launches per forward asserted."""
+    cfg = oag_config("author_disambiguation", workdir)
+    t0 = time.perf_counter()
+    pred = LinkPredictor(cfg, graph, ckpt, log=lambda s: None, device=dev)
+    log(f"[link-serve] LinkPredictor on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s: layout node cap "
+        f"{pred.layout.node_cap}, {pred.layout.num_edges} padded edges")
+    authors = sorted(a for g in pred.task.groups.values() for a in g)
+    authors = authors[:LINK_INDEX_AUTHORS]
+    torch.cuda.synchronize()
+    reset_counts()
+    pred.stats.clear()
+    t0 = time.perf_counter()
+    pred.build_author_index(authors)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    chunks = list(pred.stats)
+    index_counts = read_counts()
+    log(f"[link-serve] index of {len(authors)} authors in {len(chunks)} "
+        f"chunks of {cfg.batch_size}: {build_ms:.1f} ms ({build_ms / len(chunks):.1f}"
+        f" ms per chunk; sampler {np.mean([c['sample_ms'] for c in chunks]):.2f}"
+        f", host sort {np.mean([c['sort_ms'] for c in chunks]):.2f}, forward "
+        f"{np.mean([c['forward_ms'] for c in chunks]):.2f} ms per chunk, "
+        f"mean); index {tuple(pred.index._emb.shape)} version "
+        f"{pred.index.params_version}")
+    want = scaled(PREDICTOR_FORWARD, cfg.n_layers * len(chunks))
+    if index_counts != want:
+        raise AssertionError(f"[link-serve] index launches {index_counts} != "
+                             f"{want}")
+
+    rng = np.random.default_rng(44)
+    n_paper = graph.num_nodes["paper"]
+
+    def serve_one(n):
+        req = {"papers": rng.choice(n_paper, n, replace=False).tolist(),
+               "k": LINK_K}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        served = serve_link_jsonl(pred, stdin=io.StringIO(json.dumps(req)
+                                                          + "\n"),
+                                  stdout=out, log=lambda s: None)
+        ms = (time.perf_counter() - t0) * 1e3
+        resp = json.loads(out.getvalue())
+        if served != 1 or "error" in resp:
+            raise AssertionError(f"request failed: {resp.get('error')}")
+        return req, resp, ms
+
+    serve_one(LINK_REQUESTS[-1])                  # warm-up
+    torch.cuda.synchronize()
+    pred.stats.clear()
+    reset_counts()
+    rows = []
+    for n in LINK_REQUESTS:
+        req, resp, total = serve_one(n)
+        (st,) = pred.stats[len(rows):]
+        vals, ids = np.asarray(resp["scores"]), np.asarray(resp["authors"])
+        ok = (resp["papers"] == req["papers"] and vals.shape == ids.shape
+              == (n, LINK_K) and bool(np.isfinite(vals).all())
+              and bool((np.diff(vals, axis=1) <= 0).all())
+              and set(ids.ravel().tolist()) <= set(authors))
+        rows.append(dict(st, total_ms=total, papers=n, req=req, resp=resp))
+        log(f"[link-serve] request {len(rows)}: {n} papers, top {LINK_K} | "
+            f"sampler {st['sample_ms']:.2f} ms, host sort {st['sort_ms']:.2f} "
+            f"ms, forward {st['forward_ms']:.2f} ms, score + top-k "
+            f"{st['topk_ms']:.2f} ms, total {total:.2f} ms | valid edges "
+            f"{st['edges']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[link-serve] request {len(rows)}: bad "
+                                 "answer")
+    counts = read_counts()
+    for key in ("sample_ms", "sort_ms", "forward_ms", "topk_ms", "total_ms"):
+        vals = [r[key] for r in rows]
+        log(f"[link-serve] {key} per request over {len(rows)}: mean "
+            f"{np.mean(vals):.2f}, max {np.max(vals):.2f}")
+    want = scaled(PREDICTOR_FORWARD, cfg.n_layers * len(rows))
+    log(f"[link-serve] kernel launches {counts} over {len(rows)} forwards "
+        f"(expected per layer and forward {PREDICTOR_FORWARD})")
+    if counts != want:
+        raise AssertionError("[link-serve] the launches differ")
+
+    # the top-k against the index product recomputed in float64 on the
+    # host, from the same query representations (the request's sampler
+    # draw is the default generator's): compared by score, so that ties
+    # may come in any order
+    emb = pred.index._emb.double().cpu()
+    p_ti = pred.layout.schema.type_id("paper")
+    worst = 0.0
+    for r in rows:
+        papers = np.asarray(r["req"]["papers"])
+        seeds = {"paper": np.stack([papers, np.full(len(papers),
+                                                    pred.max_time)], 1)}
+        h = pred._reps(seeds, np.random.default_rng(cfg.seed + 13))
+        with torch.inference_mode():
+            q = pred.model.matcher.right(h[p_ti, : len(papers)])
+        full = (q.double().cpu() @ emb.T / np.sqrt(cfg.n_hid)).numpy()
+        top = -np.sort(-full, axis=1)[:, :LINK_K]
+        vals = np.asarray(r["resp"]["scores"])
+        pos = np.searchsorted(pred.index._cand_ids,
+                              np.asarray(r["resp"]["authors"]))
+        picked = np.take_along_axis(full, pos, axis=1)
+        tol = 1e-4 + 1e-4 * np.abs(top)
+        worst = max(worst, float(np.abs(vals - top).max()),
+                    float(np.abs(picked - top).max()))
+        if not ((np.abs(vals - top) <= tol).all()
+                and (np.abs(picked - top) <= tol).all()):
+            raise AssertionError("[link-serve] top-k differs from the plain "
+                                 "index product")
+    log(f"[link-serve] top-{LINK_K} scores and the picked authors' scores "
+        f"against the float64 recomputation of the index product: max |diff| "
+        f"{worst:.3e} (tol 1e-4 + 1e-4 x |score|; TF32 off) ok")
+    return index_counts, counts
 
 
 def phase_profile(fl, batch, labels, pred):
@@ -1746,6 +2450,18 @@ def main():
                                  profile=args.profile)
         if args.profile:
             phase_profile(fl, batch, labels, pred)
+        oag = oag_graph(workdir)
+        field_counts, oag_kernels = phase_oag_field(dev, oag, workdir,
+                                                    profile=args.profile)
+        venue_counts = phase_oag_venue(dev, workdir)
+        link_counts, best = phase_oag_link(dev, oag, workdir)
+        index_counts, link_serve_counts = phase_link_serve(dev, oag, best,
+                                                           workdir)
+        # the OAG path's launches: every run above, each counted from 0
+        # just before it ran
+        oag_counts = {k: sum(c[k] for c in (
+            field_counts, venue_counts, link_counts, index_counts,
+            link_serve_counts)) for k in NO_LAUNCH}
 
     # launches: the serving path's and the training path's, each counted
     # from 0 just before the path ran
@@ -1753,15 +2469,20 @@ def main():
     single["launches_train"] = train_counts["live_partials"]
     single["launches_predictor"] = predictor_counts["live_partials"]
     single["launches_ogbn"] = ogbn_counts["live_partials"]
+    single["launches_oag"] = oag_counts["live_partials"]
     single["launches"] = (single["launches_serve"] + single["launches_train"]
                           + single["launches_predictor"]
-                          + single["launches_ogbn"])
+                          + single["launches_ogbn"] + single["launches_oag"])
+    single.update(oag_kernels["live_partials"])
     for rec in pair:
         kind = rec.pop("kind")
         rec["launches_serve"] = serve_counts[f"pair_{kind}"]
         rec["launches_train"] = train_counts[f"pair_{kind}"]
         rec["launches_ogbn"] = ogbn_counts[f"pair_{kind}"]
-        rec["launches"] = rec["launches_train"] + rec["launches_ogbn"]
+        rec["launches_oag"] = oag_counts[f"pair_{kind}"]
+        rec["launches"] = (rec["launches_train"] + rec["launches_ogbn"]
+                           + rec["launches_oag"])
+        rec.update(oag_kernels.get(f"pair_{kind}", {}))
     for rec in others:
         counter = rec.pop("counter")
         if counter == "head_sum":
@@ -1773,8 +2494,11 @@ def main():
             if counter == "softmax":
                 rec["launches_predictor"] = predictor_counts[counter]
                 rec["launches_ogbn"] = ogbn_counts[counter]
+                rec["launches_oag"] = oag_counts[counter]
                 rec["launches"] += (rec["launches_predictor"]
-                                    + rec["launches_ogbn"])
+                                    + rec["launches_ogbn"]
+                                    + rec["launches_oag"])
+                rec.update(oag_kernels["softmax"])
         if not rec["launches"]:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  "path")

@@ -2,12 +2,13 @@
 
 The JAX package stays the reference; this package mirrors its module paths
 (``pyhgt_tpu_torch/ops/sorted_hgt.py`` <-> ``pyhgt_tpu/ops/sorted_hgt.py``)
-and imports nothing of it, nor of JAX. What is ported so far is the
-flagship HGT model on the scatter-free sorted-edge path: its inference
-forward and its training step (the edge stage's hand-written backward, NLL
-loss, global-norm clip, AdamW, the train bench), with the segment sums of
-the forward and the backward as hand-written Hopper kernels
-(:mod:`pyhgt_tpu_torch.ops.pallas_seg`).
+and imports nothing of it, nor of JAX. What is ported so far is the HGT
+model on the scatter-free sorted-edge path (its forward and its training
+step, with the segment sums of both as hand-written Hopper kernels,
+:mod:`pyhgt_tpu_torch.ops.pallas_seg`), the HGSampling sampler and the
+host sort, and on one device the ogbn-mag, paper-field / paper-venue and
+author-disambiguation runners, their evaluation, and node and link
+serving (:mod:`pyhgt_tpu_torch.run`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).

@@ -10,16 +10,19 @@ params) is a nested dict; as numpy arrays it reads::
                                             ln_scale, ln_bias, rte_w, rte_b}}},
         "clf": {"Dense_0": {"kernel": [n_hid, n_out], "bias": [n_out]}}}}
 
-The port keeps every HGT leaf under the same name and shape; only the flax
-``Dense`` kernel ``[in, out]`` becomes the torch ``Linear`` weight
-``[out, in]``. The map is about names and shapes, not about what the
+A JAX ``LinkMatcherModel`` has ``"matcher": {"left_linear": {kernel,
+bias}, "right_linear": {kernel, bias}}`` in place of ``clf``. The port
+keeps every HGT leaf under the same name and shape; only a flax ``Dense``
+kernel ``[in, out]`` becomes the torch ``Linear`` weight ``[out, in]``
+(``clf.linear``, ``matcher.left_linear``, ``matcher.right_linear``). The map is about names and shapes, not about what the
 leaves mean: it carries a tree of gradients or of updated parameters the
 same way (:func:`flax_to_state_dict`), and :func:`named_to_flax` brings the
 port's named tensors (``named_parameters()``, or their ``.grad``) back into
 the flax layout. A JAX ``NodeClassifierModel`` tree has the same layout
 (``gnn`` and ``clf``), so it maps unchanged onto the port's
-``NodeClassifierModel``; :func:`checkpoint_from_flax` writes such a tree
-as a port checkpoint.
+``NodeClassifierModel`` (either head mode), and a ``LinkMatcherModel``
+tree onto the port's ``LinkMatcherModel``; :func:`checkpoint_from_flax`
+writes either as a port checkpoint.
 """
 
 from __future__ import annotations
@@ -29,9 +32,15 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+# torch Linear -> flax Dense path of each head's linears
+_DENSE = {"clf.linear": ("clf", "Dense_0"),
+          "matcher.left_linear": ("matcher", "left_linear"),
+          "matcher.right_linear": ("matcher", "right_linear")}
+
 
 def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``FlagshipModel`` state-dict layout of a flax-shaped tree
+    """The port's state-dict layout (``FlagshipModel``,
+    ``NodeClassifierModel`` or ``LinkMatcherModel``) of a flax-shaped tree
     (parameters, gradients, optimizer moments)."""
     p = tree["params"] if "params" in tree else tree
     out: Dict[str, torch.Tensor] = {}
@@ -47,33 +56,39 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 put(f"gnn.convs.{i}.{k}", v)
         else:
             put(f"gnn.{name}", leaf)
-    dense = p["clf"]["Dense_0"]
-    put("clf.linear.weight", np.asarray(dense["kernel"]).T)
-    put("clf.linear.bias", dense["bias"])
+    for key, (head, layer) in _DENSE.items():
+        if head in p:
+            dense = p[head][layer]
+            put(f"{key}.weight", np.asarray(dense["kernel"]).T)
+            put(f"{key}.bias", dense["bias"])
     return out
 
 
 def named_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
-    """The flax layout ``{"params": {"gnn": ..., "clf": ...}}`` (numpy
-    leaves) of the port's tensors keyed as in ``named_parameters()``: the
-    inverse of :func:`flax_to_state_dict`."""
-    gnn: Dict = {}
-    dense: Dict = {}
+    """The flax layout ``{"params": {"gnn": ..., "clf" or "matcher":
+    ...}}`` (numpy leaves) of the port's tensors keyed as in
+    ``named_parameters()``: the inverse of :func:`flax_to_state_dict`."""
+    params: Dict = {"gnn": {}}
+    gnn = params["gnn"]
     for key, t in named.items():
         arr = t.detach().cpu().numpy()
         parts = key.split(".")
+        linear, _, leaf = key.rpartition(".")
         if parts[:2] == ["gnn", "convs"]:
             conv = gnn.setdefault(f"convs_{parts[2]}", {"base_conv": {}})
             conv["base_conv"][parts[3]] = arr
         elif parts[0] == "gnn":
             gnn[parts[1]] = arr
-        elif key == "clf.linear.weight":
-            dense["kernel"] = arr.T
-        elif key == "clf.linear.bias":
-            dense["bias"] = arr
+        elif linear in _DENSE and leaf in ("weight", "bias"):
+            head, layer = _DENSE[linear]
+            dense = params.setdefault(head, {}).setdefault(layer, {})
+            if leaf == "weight":
+                dense["kernel"] = arr.T
+            else:
+                dense["bias"] = arr
         else:
             raise KeyError(f"no flax leaf for {key}")
-    return {"params": {"gnn": gnn, "clf": {"Dense_0": dense}}}
+    return {"params": params}
 
 
 def load_flax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
@@ -86,9 +101,10 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
 
 def checkpoint_from_flax(tree: Mapping, path: str, step: int = 0) -> None:
     """Write the port checkpoint directory ``path``
-    (:mod:`pyhgt_tpu_torch.train.checkpoint`) from a JAX parameter tree
-    (numpy or array leaves, e.g. a restored ``TrainState.params``): the
-    model's state dict and ``step``, with no optimizer state."""
+    (:mod:`pyhgt_tpu_torch.train.checkpoint`) from a JAX parameter tree of
+    a ``NodeClassifierModel`` or a ``LinkMatcherModel`` (numpy or array
+    leaves, e.g. a restored ``TrainState.params``): the model's state dict
+    and ``step``, with no optimizer state."""
     from pyhgt_tpu_torch.train.checkpoint import write_checkpoint
 
     write_checkpoint(path, flax_to_state_dict(tree), None, step)

@@ -1,20 +1,23 @@
 """Online serving: checkpoint -> warm predictor -> per-request inference.
 
-Counterpart of the node-classification half of
-:mod:`pyhgt_tpu.experiments.serving`: load a checkpoint once, then answer
+Counterpart of :mod:`pyhgt_tpu.experiments.serving`. Node classification
+(:class:`OgbnPredictor`): load a checkpoint once, then answer
 ``predict(node_ids)`` requests by sampling subgraphs around the requested
 nodes (HGSampling), packing them (``pad_sample``), sorting their edges on
 the host (C++ when it builds) and running the ``NodeClassifierModel``
 forward on the device, log-probs accumulated over ``vr_num`` resamples
 (the variance-reduced protocol behind the reference's published number,
-``ogbn-mag/eval_ogbn_mag.py:128-160``). The transports (JSON-lines with
-optional request coalescing, a stdlib HTTP front-end) are the JAX
-package's, unchanged. The link predictor and its transports come with link
-prediction.
+``ogbn-mag/eval_ogbn_mag.py:128-160``). Link prediction
+(:class:`LinkPredictor`): an author-disambiguation checkpoint's left tower
+embeds a candidate author set once into a versioned
+:class:`~pyhgt_tpu_torch.tasks.matcher_index.MatcherIndex`, and query
+papers are answered by their top-k authors. The transports (JSON-lines
+with optional request coalescing, a stdlib HTTP front-end) are the JAX
+package's, unchanged.
 
 Exposed on the CLI as
-``python -m pyhgt_tpu_torch.run serve --data .. --ckpt ..`` (JSON-lines on
-stdin/stdout).
+``python -m pyhgt_tpu_torch.run serve --data .. --ckpt ..
+[--serve_task link]`` (JSON-lines on stdin/stdout).
 """
 
 from __future__ import annotations
@@ -27,9 +30,13 @@ import numpy as np
 
 from pyhgt_tpu_torch import resolve_device
 from pyhgt_tpu_torch.config import ExperimentConfig
+import torch
+
 from pyhgt_tpu_torch.experiments.engine import (
+    OAG_SPLITS,
     _infer_in_dim,
     check_ported,
+    link_setup,
     make_layout,
     make_sampler,
     make_tx,
@@ -38,12 +45,15 @@ from pyhgt_tpu_torch.experiments.engine import (
 )
 from pyhgt_tpu_torch.graph.csr import CSRGraph
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
-from pyhgt_tpu_torch.sampling.sorted_batch import sort_edges
+from pyhgt_tpu_torch.sampling.batch import pad_sample
+from pyhgt_tpu_torch.sampling.sorted_batch import sort_batch, sort_edges
+from pyhgt_tpu_torch.tasks.base import gather_features
+from pyhgt_tpu_torch.tasks.matcher_index import MatcherIndex
 from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import load_checkpoint
 from pyhgt_tpu_torch.train.step import TrainState, make_eval_step
 
-# OgbnPredictor.stats keeps the records of this many latest forwards: a
+# a predictor's stats keep the records of this many latest forwards: a
 # long-lived server appends one per forward
 STATS_KEEP = 4096
 
@@ -189,6 +199,155 @@ class OgbnPredictor:
         return np.argmax(
             self.predict_logprobs(node_ids, vr_num=vr_num, rng=rng), axis=-1
         )
+
+
+def _sync(device) -> None:
+    """Wait for the device, so that a host clock read after it covers the
+    work queued on it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class LinkPredictor:
+    """Two-tower serving for the link-prediction family (author
+    disambiguation): an offline candidate index and online top-k.
+
+    The reference's Matcher caches its left tower in-module for "millions
+    or even billions" of candidates and never invalidates it
+    (``pyHGT/model.py:27-39``); here the flow is explicit:
+
+    - :meth:`build_author_index` embeds a candidate author set once —
+      subgraphs sampled around the authors (chunks of ``batch_size``), GNN
+      representations through the matcher's LEFT tower into a versioned
+      :class:`~pyhgt_tpu_torch.tasks.matcher_index.MatcherIndex` on the
+      device;
+    - :meth:`topk` answers query papers online: sample around the papers,
+      RIGHT-tower their representations, score against the index.
+
+    The model and layout are built as ``run_author_disambiguation`` builds
+    them (calibrated caps), on ``device`` (default ``cuda``), and
+    ``ckpt_path`` is restored into it. Batches are sorted with the default
+    aux and without the backward's (as :class:`OgbnPredictor` sorts). No
+    leakage masking at serving time: inference wants every edge (masking
+    is a training concern, ``train_author_disambiguation.py:145-155``).
+
+    ``stats`` holds one record for each of the last :data:`STATS_KEEP`
+    forwards: ``sample_ms`` (sampler + feature gather + ``pad_sample``),
+    ``sort_ms`` (host sort), ``forward_ms`` (host->device copies and the
+    GNN forward, to the device's end), ``edges`` (valid edges), and for a
+    query forward ``topk_ms`` (right tower, index product, top-k and the
+    results back on the host).
+    """
+
+    def __init__(
+        self,
+        cfg: ExperimentConfig,
+        graph: CSRGraph,
+        ckpt_path: str,
+        first_meta=("author", "paper", "rev_AP_write_first"),
+        write_meta=("paper", "author", "AP_write_first"),
+        max_group: int = 32,
+        log: Callable[[str], None] = print,
+        device=None,
+    ) -> None:
+        self.device = resolve_device(device)
+        check_ported(cfg)
+        self.cfg = cfg
+        self.graph = graph
+        task, _, model = link_setup(cfg, graph, OAG_SPLITS, first_meta,
+                                    write_meta, max_group, log)
+        self.task, self.layout, self.sampler = task, task.layout, task.sampler
+        self.em = EdgeStaticMeta.from_layout(self.layout)
+        self.em_dev = self.em.to(self.device)
+        model = model.to(self.device)
+        template = TrainState(model, make_tx(cfg, model.named_parameters(), 1))
+        self.state = load_checkpoint(ckpt_path, template)
+        self.model = self.state.model.eval()
+        self._gnn = make_eval_step(self.model.gnn)
+        self.max_time = int(graph.times.max()) if len(graph.times) else 0
+        self.index = None
+        self.stats: list = []
+
+    def _reps(self, seed_dict, rng) -> torch.Tensor:
+        """``[T, C, D]`` GNN representations of one sampled padded subgraph,
+        on the device; appends the forward's record to ``stats``."""
+        t0 = time.perf_counter()
+        raw = self.sampler.sample_raw(seed_dict, rng=rng)
+        feats = gather_features(self.graph, raw, self.task.feature_fn)
+        sub = pad_sample(raw, self.layout, feats, rng=rng)
+        t1 = time.perf_counter()
+        se = sort_batch(sub, self.layout, self.em, with_backward=False)
+        t2 = time.perf_counter()
+        h = self._gnn(torch.as_tensor(sub.node_feat, device=self.device),
+                      torch.as_tensor(sub.node_mask, device=self.device),
+                      se.to(self.device), self.em_dev)
+        _sync(self.device)
+        t3 = time.perf_counter()
+        self.stats.append({"sample_ms": (t1 - t0) * 1e3,
+                           "sort_ms": (t2 - t1) * 1e3,
+                           "forward_ms": (t3 - t2) * 1e3,
+                           "edges": int(np.asarray(sub.edge_mask).sum())})
+        del self.stats[:-STATS_KEEP]
+        return h
+
+    def build_author_index(
+        self,
+        author_ids: Sequence[int],
+        rng: Optional[np.random.Generator] = None,
+    ) -> "LinkPredictor":
+        """Embed candidate authors (seeded at ``max_time``, the reference's
+        convention ``train_author_disambiguation.py:107-131``) into the
+        left-tower index. Call again after new checkpoints — the index is
+        versioned, not silently stale."""
+        rng = rng or np.random.default_rng(self.cfg.seed + 11)
+        ids = np.asarray(author_ids, dtype=np.int64)
+        a_ti = self.layout.schema.type_id(self.task.author_type)
+        reps = []
+        bs = self.cfg.batch_size
+        for s in range(0, len(ids), bs):
+            chunk = ids[s : s + bs]
+            seeds = np.stack(
+                [chunk, np.full(len(chunk), self.max_time)], axis=1
+            )
+            h = self._reps({self.task.author_type: seeds}, rng)
+            reps.append(h[a_ti, : len(chunk)])  # seeds-first contract
+        if self.index is None:
+            self.index = MatcherIndex(
+                matcher_apply=lambda m, x: m.matcher.left(x))
+        self.index.build(self.model, torch.cat(reps, dim=0), ids)
+        return self
+
+    def topk(
+        self,
+        paper_ids: Sequence[int],
+        k: int = 10,
+        times: Optional[Sequence[int]] = None,
+        rng: Optional[np.random.Generator] = None,
+    ):
+        """Top-k candidate authors per query paper:
+        ``(scores [Q, k], author_ids [Q, k])`` on the host."""
+        if self.index is None:
+            raise RuntimeError("call build_author_index() first")
+        k = min(k, len(self.index._cand_ids))
+        rng = rng or np.random.default_rng(self.cfg.seed + 13)
+        ids = np.asarray(paper_ids, dtype=np.int64)
+        t = (np.asarray(times, dtype=np.int64) if times is not None
+             else np.full(len(ids), self.max_time))
+        p_ti = self.layout.schema.type_id(self.task.paper_type)
+        vals_out, cand_out = [], []
+        bs = self.cfg.batch_size  # chunk: seeds beyond node_cap would be
+        # silently truncated by pad_sample (sampling/batch.py)
+        for s in range(0, len(ids), bs):
+            seeds = np.stack([ids[s : s + bs], t[s : s + bs]], axis=1)
+            h = self._reps({self.task.paper_type: seeds}, rng)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                q = self.model.matcher.right(h[p_ti, : len(seeds)])
+            vals, cand = self.index.score(q, top_k=k)
+            vals_out.append(vals.cpu().numpy())
+            cand_out.append(cand)
+            self.stats[-1]["topk_ms"] = (time.perf_counter() - t0) * 1e3
+        return np.concatenate(vals_out), np.concatenate(cand_out)
 
 
 def _answer_node_batch(predictor, reqs):
@@ -566,3 +725,123 @@ def node_answer(predictor: OgbnPredictor):
     """The node-classification request semantics shared by the JSONL and
     HTTP front-ends."""
     return lambda req: _answer_node_batch(predictor, [req])[0]
+
+
+def serve_link_jsonl(
+    predictor: LinkPredictor,
+    stdin=None,
+    stdout=None,
+    log: Callable[[str], None] = print,
+    coalesce_wait: float = 0.0,
+    deadline_ms: Optional[float] = None,
+) -> int:
+    """JSON-lines top-k serving on a :class:`LinkPredictor`: each line
+    ``{"papers": [...], "k": 10?, "times": [...]?}`` answers with
+    ``{"papers": [...], "authors": [[...k ids]], "scores": [[...k]]}``.
+    A line ``{"index_authors": [...]}`` (re)builds the candidate index
+    online (versioned, :meth:`LinkPredictor.build_author_index`) and
+    answers ``{"indexed": n, "version": v}``.
+
+    ``coalesce_wait > 0`` micro-batches concurrent requests into one
+    subgraph sample + top-k call per distinct ``k`` (the same trade as the
+    node loop; index rebuilds are never coalesced). ``"auto"`` / a
+    negative float selects the :class:`AdaptiveWait` window;
+    ``deadline_ms`` = arrival-anchored p95 queueing cap."""
+    coalesce_wait = _norm_wait(coalesce_wait, deadline_ms, log)
+    if not isinstance(coalesce_wait, AdaptiveWait) and coalesce_wait <= 0:
+        return _serve_loop(stdin, stdout, log, link_answer(predictor))
+    return _serve_coalesced(
+        stdin, stdout, log, coalesce_wait,
+        lambda reqs: _answer_link_batch(predictor, reqs),
+    )
+
+
+def _answer_link_batch(predictor, reqs):
+    """Answer a burst of parsed link requests with ONE ``topk`` call per
+    distinct ``k`` (queries concatenate; per-paper times default to the
+    predictor's ``max_time`` exactly as ``topk(times=None)`` does).
+    ``index_authors`` lines run in place, uncoalesced — so a rebuild
+    inside a burst applies to EVERY top-k answer of that burst (clients
+    needing strict ordering should not pipeline rebuilds with queries).
+    Response order matches request order; a failing request retries solo
+    so it only errors itself."""
+    import collections
+
+    single = link_answer(predictor)
+    resp = [None] * len(reqs)
+    groups = collections.defaultdict(list)
+    for i, req in enumerate(reqs):
+        try:
+            if "index_authors" in req:
+                resp[i] = single(req)
+                continue
+            papers = [int(v) for v in req["papers"]]
+            times = req.get("times")
+            if times is not None:
+                times = [int(t) for t in times]
+                if len(times) != len(papers):
+                    raise ValueError(
+                        f"times has {len(times)} entries for "
+                        f"{len(papers)} papers"
+                    )
+            groups[int(req.get("k", 10))].append((i, papers, times))
+        except Exception as e:  # malformed request: answer, don't die
+            resp[i] = {"error": repr(e)}
+
+    def answer_members(members, k):
+        flat, flat_t = [], []
+        for _, papers, times in members:
+            flat.extend(papers)
+            flat_t.extend(
+                times if times is not None
+                else [predictor.max_time] * len(papers)
+            )
+        vals, cand = predictor.topk(flat, k=k, times=flat_t)
+        pos = 0
+        for i, papers, _ in members:
+            rows = slice(pos, pos + len(papers))
+            pos += len(papers)
+            resp[i] = {
+                "papers": papers,
+                "authors": cand[rows].tolist(),
+                "scores": np.round(vals[rows], 6).tolist(),
+            }
+
+    for k, members in groups.items():
+        try:
+            answer_members(members, k)
+        except Exception as e:
+            if len(members) == 1:
+                resp[members[0][0]] = {"error": repr(e)}
+                continue
+            for member in members:
+                try:
+                    answer_members([member], k)
+                except Exception as e1:
+                    resp[member[0]] = {"error": repr(e1)}
+    return resp
+
+
+def link_answer(predictor: LinkPredictor):
+    """The link top-k request semantics shared by the JSONL and HTTP
+    front-ends."""
+
+    def answer(req):
+        if "index_authors" in req:
+            ids = [int(v) for v in req["index_authors"]]
+            predictor.build_author_index(ids)
+            return {
+                "indexed": len(ids),
+                "version": predictor.index.params_version,
+            }
+        papers = [int(v) for v in req["papers"]]
+        vals, cand = predictor.topk(
+            papers, k=int(req.get("k", 10)), times=req.get("times"),
+        )
+        return {
+            "papers": papers,
+            "authors": cand.tolist(),
+            "scores": np.round(vals, 6).tolist(),
+        }
+
+    return answer

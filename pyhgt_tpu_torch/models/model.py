@@ -1,10 +1,12 @@
-"""GNN stack and the classifier head.
+"""GNN stack, the classifier head and the two-tower matcher.
 
-Counterpart of :mod:`pyhgt_tpu.models.model` (``GNN`` and ``Classifier``;
-reference ``pyHGT/model.py:3-14,54-80``), on the HGT conv only.
+Counterpart of :mod:`pyhgt_tpu.models.model` (``GNN``, ``Classifier``,
+``Matcher``; reference ``pyHGT/model.py:3-80``), on the HGT conv only.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -53,18 +55,54 @@ class GNN(nn.Module):
         return h
 
 
+def dense(n_in, n_out, generator: torch.Generator) -> nn.Linear:
+    """A ``Linear`` initialized as flax's ``Dense`` (lecun_normal kernel,
+    zero bias)."""
+    linear = nn.Linear(n_in, n_out)
+    with torch.no_grad():
+        # flax kernel [in, out] = torch weight [out, in] transposed
+        kernel = lecun_normal_(torch.empty(n_in, n_out), generator)
+        linear.weight.copy_(kernel.T)
+        linear.bias.zero_()
+    return linear
+
+
 class Classifier(nn.Module):
-    """Linear + log_softmax head (``model.py:3-14``); the linear is
-    initialized as flax's ``Dense`` (lecun_normal kernel, zero bias)."""
+    """Linear + log_softmax head (``model.py:3-14``)."""
 
     def __init__(self, n_hid, n_out, *, generator: torch.Generator):
         super().__init__()
-        self.linear = nn.Linear(n_hid, n_out)
-        with torch.no_grad():
-            # flax kernel [in, out] = torch weight [out, in] transposed
-            kernel = lecun_normal_(torch.empty(n_hid, n_out), generator)
-            self.linear.weight.copy_(kernel.T)
-            self.linear.bias.zero_()
+        self.linear = dense(n_hid, n_out, generator)
 
     def forward(self, x):
         return torch.log_softmax(self.linear(x), dim=-1)
+
+
+class Matcher(nn.Module):
+    """Two-tower dot-product scorer for link prediction
+    (``model.py:16-49``): ``left(x) · right(y) / sqrt(n_hid)``.
+
+    The reference caches the left tower during inference and never
+    invalidates the cache (``model.py:35-39``); here caching is explicit:
+    call :meth:`left` once, keep the result (or a
+    :class:`~pyhgt_tpu_torch.tasks.matcher_index.MatcherIndex`), and score
+    with :meth:`score_cached`."""
+
+    def __init__(self, n_hid, *, generator: torch.Generator):
+        super().__init__()
+        self.n_hid = n_hid
+        self.left_linear = dense(n_hid, n_hid, generator)
+        self.right_linear = dense(n_hid, n_hid, generator)
+
+    def left(self, x):
+        return self.left_linear(x)
+
+    def right(self, y):
+        return self.right_linear(y)
+
+    def score_cached(self, tx, ty):
+        """``[X, Y]`` scores with a precomputed left tower ``tx``."""
+        return tx @ ty.T / math.sqrt(self.n_hid)
+
+    def forward(self, x, y):
+        return self.score_cached(self.left(x), self.right(y))

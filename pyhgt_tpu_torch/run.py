@@ -3,8 +3,18 @@
 Counterpart of :mod:`pyhgt_tpu.run`: the same tasks, every
 :class:`~pyhgt_tpu_torch.config.ExperimentConfig` field as a flag, and the
 tasks' own flags, so a recipe of the JAX package translates unchanged.
-Ported tasks, all on the ``ogbn_mag`` preset:
+Each task starts from its own preset (``serve`` from ``ogbn_mag``, or
+from ``author_disambiguation`` under ``--serve_task link``; ``eval_ogbn_mag``
+from ``ogbn_mag``). Ported tasks:
 
+- ``paper_field`` / ``paper_venue``: train the OAG node classifier
+  (:func:`~pyhgt_tpu_torch.experiments.engine.run_node_classification`;
+  KL over the multi-hot L2 fields, NLL over the venue) with ``--features
+  oag|mag`` and ``--label_meta``, then average NDCG/MRR over 10 test
+  batches;
+- ``author_disambiguation``: train the two-tower link matcher
+  (:func:`~pyhgt_tpu_torch.experiments.engine.run_author_disambiguation`)
+  with ``--first_meta`` / ``--write_meta``;
 - ``ogbn_mag``: train (:func:`~pyhgt_tpu_torch.experiments.engine.run_ogbn`:
   the epoch loop, best and ``latest`` checkpoints and a metrics jsonl under
   ``--model_dir``), then evaluate the test
@@ -13,13 +23,21 @@ Ported tasks, all on the ``ogbn_mag`` preset:
   PNG when matplotlib is installed;
 - ``eval_ogbn_mag --ckpt <dir>``: evaluate a checkpoint
   (:func:`~pyhgt_tpu_torch.experiments.engine.evaluate_ogbn`);
-- ``serve --ckpt <dir>`` (``--serve_task node``): JSON-lines requests on
-  stdin answered on stdout (or HTTP with ``--http``) by an
-  :class:`~pyhgt_tpu_torch.experiments.serving.OgbnPredictor`.
+- ``serve --ckpt <dir>``: JSON-lines requests on stdin answered on stdout
+  (or HTTP with ``--http``) by an
+  :class:`~pyhgt_tpu_torch.experiments.serving.OgbnPredictor`
+  (``--serve_task node``), or by a
+  :class:`~pyhgt_tpu_torch.experiments.serving.LinkPredictor` over an
+  ``author_disambiguation`` checkpoint (``--serve_task link``: top-k
+  authors of query papers from an index of the first ``--index_authors``
+  grouped authors, 0 = all).
 
-Every other task exits with "not ported yet". ``--device`` (default
-``cuda``) takes the place of the JAX package's ``--platform``: without a
-GPU the default raises, ``--device cpu`` runs the plain CPU path.
+Every training run writes its best and ``latest`` checkpoints under
+``--model_dir``; ``--plot`` writes the curves PNG when matplotlib is
+installed. ``preprocess_oag`` exits with "not ported yet". ``--device``
+(default ``cuda``) takes the place of the JAX package's ``--platform``:
+without a GPU the default raises, ``--device cpu`` runs the plain CPU
+path.
 """
 
 from __future__ import annotations
@@ -52,15 +70,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot", action="store_true",
                    help="write loss/metric curves PNG next to the "
                         "checkpoint after training (train_ogbn_mag.py:29)")
+    p.add_argument("--features", default="oag", choices=["oag", "mag"],
+                   help="feature extractor for OAG tasks (oag = node_emb||"
+                        "emb||log-citation concat; mag = plain emb gather)")
+    p.add_argument("--label_meta", default=None,
+                   help="label meta-relation as 'tgt_type,src_type,rel' "
+                        "(defaults: field,paper,PF_in_L2 for paper_field; "
+                        "venue,paper,PV_Journal for paper_venue)")
     p.add_argument("--serve_task", default="node", choices=["node", "link"],
                    help="serve mode: node = classification over sampled "
                         "subgraphs; link = two-tower matcher top-k "
-                        "(not ported yet)")
+                        "(offline author index + online paper queries)")
     p.add_argument("--coalesce_wait", default=0.0,
                    type=lambda s: s if s == "auto" else float(s),
-                   help="serve micro-batching: wait this many seconds after "
-                        "the first pending request, then answer the burst "
-                        "with one coalesced model call; 'auto' (or a "
+                   help="serve micro-batching (node and link): wait this "
+                        "many seconds after the first pending request, then "
+                        "answer the burst with one coalesced model call; "
+                        "'auto' (or a "
                         "negative value = adaptive with that max window) "
                         "adapts the window to the arrival process "
                         "(serving.AdaptiveWait)")
@@ -73,6 +99,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve over HTTP on this port instead of "
                         "JSON-lines stdio (POST / with the same request "
                         "bodies; GET /healthz)")
+    p.add_argument("--index_authors", type=int, default=0,
+                   help="link-serve: pre-build the candidate index over the "
+                        "first N grouped authors (0 = all); clients can "
+                        "rebuild online with an index_authors request line")
+    p.add_argument("--first_meta", default=None,
+                   help="link family: first-author meta-relation as "
+                        "'tgt,src,rel' (default author,paper,"
+                        "rev_AP_write_first — the OAG schema, "
+                        "train_author_disambiguation.py:79-86)")
+    p.add_argument("--write_meta", default=None,
+                   help="link family: authorship meta-relation as "
+                        "'tgt,src,rel' (default paper,author,AP_write_first)")
     p.add_argument("--data", dest="data_path", default=None,
                    help="CSRGraph pickle or a save_dir directory "
                         "(mmap-loaded); either may come from the JAX "
@@ -107,23 +145,39 @@ def load_graph(path: str):
     return CSRGraph.load(path)
 
 
-PORTED = ("ogbn_mag", "eval_ogbn_mag", "serve")
+def _link_metas(args) -> dict:
+    """--first_meta/--write_meta 'tgt,src,rel' -> kwargs for the link
+    family (training runner + LinkPredictor), defaults omitted."""
+    out = {}
+    if args.first_meta:
+        out["first_meta"] = tuple(args.first_meta.split(","))
+    if args.write_meta:
+        out["write_meta"] = tuple(args.write_meta.split(","))
+    return out
+
+
+NOT_PORTED = ("preprocess_oag",)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.task not in PORTED or (args.task == "serve"
-                                   and args.serve_task != "node"):
-        what = (args.task if args.task != "serve"
-                else f"serve --serve_task {args.serve_task}")
-        raise SystemExit(f"pyhgt_tpu_torch.run: {what} is not ported yet "
-                         "(ogbn_mag, eval_ogbn_mag and serve --serve_task "
-                         "node are)")
+    if args.task in NOT_PORTED:
+        raise SystemExit(f"pyhgt_tpu_torch.run: {args.task} is not ported "
+                         "yet")
     if not args.data_path:
         raise SystemExit(f"--data is required for task {args.task!r}")
-    if args.task != "ogbn_mag" and not args.ckpt:
+    if args.task in ("eval_ogbn_mag", "serve") and not args.ckpt:
         raise SystemExit(f"--ckpt required for {args.task}")
-    cfg = PRESETS["ogbn_mag"]
+    if args.task == "eval_ogbn_mag":
+        preset = "ogbn_mag"
+    elif args.task == "serve":
+        # the predictor rebuilds the training model before restoring the
+        # checkpoint, so the preset is the task's that wrote it
+        preset = ("author_disambiguation" if args.serve_task == "link"
+                  else "ogbn_mag")
+    else:
+        preset = args.task
+    cfg = PRESETS[preset]
     fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
     overrides = {k: v for k, v in vars(args).items()
                  if k in fields and v is not None}
@@ -138,11 +192,9 @@ def main(argv=None) -> int:
     args_print(dataclasses.asdict(cfg), file=out_file)
     graph = load_graph(cfg.data_path)
 
-    if args.task == "ogbn_mag":
-        from pyhgt_tpu_torch.experiments.engine import run_ogbn
-
-        out = run_ogbn(cfg, graph, log=log, eval_mode=args.eval_mode,
-                       device=args.device)
+    if args.task in ("paper_field", "paper_venue", "author_disambiguation",
+                     "ogbn_mag"):
+        out = train(args, cfg, graph, log)
         if args.plot:
             plot(out["history"], cfg)
     elif args.task == "eval_ogbn_mag":
@@ -150,6 +202,8 @@ def main(argv=None) -> int:
 
         evaluate_ogbn(cfg, graph, args.ckpt, eval_mode=args.eval_mode,
                       log=log, device=args.device)
+    elif args.serve_task == "link":
+        serve_link(args, cfg, graph, log)
     else:
         from pyhgt_tpu_torch.experiments.serving import (
             OgbnPredictor,
@@ -167,6 +221,54 @@ def main(argv=None) -> int:
             serve_jsonl(pred, log=log, coalesce_wait=args.coalesce_wait,
                         deadline_ms=args.deadline_ms)
     return 0
+
+
+def train(args, cfg: ExperimentConfig, graph, log) -> dict:
+    """Run the training task ``args.task`` on ``args.device``."""
+    from pyhgt_tpu_torch.experiments import engine
+
+    if args.task == "ogbn_mag":
+        return engine.run_ogbn(cfg, graph, log=log, eval_mode=args.eval_mode,
+                               device=args.device)
+    if args.task == "author_disambiguation":
+        return engine.run_author_disambiguation(
+            cfg, graph, log=log, device=args.device, **_link_metas(args))
+    from pyhgt_tpu_torch.datasets.features import feature_mag, feature_oag
+
+    field = args.task == "paper_field"
+    default = (("field", "paper", "PF_in_L2") if field
+               else ("venue", "paper", "PV_Journal"))
+    label_meta = (tuple(args.label_meta.split(",")) if args.label_meta
+                  else default)
+    return engine.run_node_classification(
+        cfg, graph, label_meta=label_meta, multi_label=field,
+        feature_fn=feature_oag if args.features == "oag" else feature_mag,
+        log=log, device=args.device)
+
+
+def serve_link(args, cfg: ExperimentConfig, graph, log) -> None:
+    """``serve --serve_task link``: a LinkPredictor over the checkpoint,
+    its index built over the grouped authors (the first
+    ``--index_authors``), then JSON-lines or HTTP."""
+    from pyhgt_tpu_torch.experiments.serving import (
+        LinkPredictor,
+        link_answer,
+        serve_http,
+        serve_link_jsonl,
+    )
+
+    lp = LinkPredictor(cfg, graph, args.ckpt, log=log, device=args.device,
+                       **_link_metas(args))
+    authors = sorted(a for g in lp.task.groups.values() for a in g)
+    if args.index_authors > 0:
+        authors = authors[: args.index_authors]
+    log(f"indexing {len(authors)} candidate authors")
+    lp.build_author_index(authors)
+    if args.http:
+        serve_http(link_answer(lp), port=args.http, log=log).serve_forever()
+    else:
+        serve_link_jsonl(lp, log=log, coalesce_wait=args.coalesce_wait,
+                         deadline_ms=args.deadline_ms)
 
 
 def plot(history, cfg: ExperimentConfig) -> None:

@@ -1,6 +1,6 @@
 """Losses, the train and eval steps, optimizers and schedules, the
-prefetch pipeline, checkpoints (counterpart of :mod:`pyhgt_tpu.train`; the
-ranking metrics come with the OAG tasks)."""
+prefetch pipeline, checkpoints and the ranking metrics (counterpart of
+:mod:`pyhgt_tpu.train`)."""
 
 from pyhgt_tpu_torch.train.loader import PrefetchLoader
 from pyhgt_tpu_torch.train.optim import (

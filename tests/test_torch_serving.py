@@ -343,9 +343,10 @@ def test_serve_http(port_env):
 
 
 def test_run_serve_cli(port_env, tmp_path, monkeypatch):
-    """``run.main(["serve", ...])`` answers JSON-lines on stdout; tasks not
-    ported exit "not ported yet"; without ``--device`` and without a GPU it
-    raises instead of running on the CPU."""
+    """``run.main(["serve", ...])`` answers JSON-lines on stdout; a task not
+    ported exits "not ported yet"; without ``--device`` and without a GPU
+    ``serve``, ``paper_field`` and ``serve --serve_task link`` raise instead
+    of running on the CPU."""
     from pyhgt_tpu_torch import run
 
     cfg, graph, path, _ = port_env
@@ -365,12 +366,13 @@ def test_run_serve_cli(port_env, tmp_path, monkeypatch):
     assert [len(x["pred"]) for x in got] == [2, 1]
     assert all(0 <= p < 4 for x in got for p in x["pred"])
     with pytest.raises(SystemExit, match="not ported yet"):
-        run.main(["paper_field", "--data", str(tmp_path / "graph")])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        run.main(["serve", "--serve_task", "link", "--data", "x", "--ckpt", "y"])
+        run.main(["preprocess_oag", "--data", str(tmp_path / "graph")])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            run.main(argv)
+        for task in (argv, ["paper_field", "--data", str(tmp_path / "graph")],
+                     ["serve", "--serve_task", "link", "--ckpt", path,
+                      "--data", str(tmp_path / "graph")]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run.main(task)
 
 
 @pytest.mark.cuda
