@@ -16,13 +16,21 @@ presets, and checks every hand-written kernel on them:
    uncompacted tab-window aux, the tab runs aux and a singleton-split aux
    with dead rows; ``live_partials_slab`` on the src runs aux and the
    tab-window aux; ``live_partials_weighted`` on the capped and legacy
-   target aux and a singleton-split aux; ``head_sum_product``; ``segment_softmax_partials`` on the
-   legacy target aux with the batch's masked rows at -1e30, on outputs
-   whose memory held NaN (tail rows exactly 0, two calls bit-identical);
+   target aux and a singleton-split aux; ``head_sum_product``;
+   ``segment_softmax_partials`` on the legacy target aux with the batch's
+   masked rows at -1e30; the softmax and the three walks
+   (``live_partials``, pair, slab) on a runs aux on outputs whose memory
+   held NaN (every row written, unreached rows exactly 0, two calls
+   bit-identical); then the walks on the hard layouts of
+   ``sampling/seg_cases.py`` (a whole-tile run, runs across every block
+   boundary, a row per run, rows that skip values, dead rows with all-dead
+   tiles, the window at W = V = 240) at 6, 72 and 138 tiles, and each
+   walk wrapper's host time per call;
 3. time each kernel, its plain version and the PyTorch calls that compute
-   the same function, beside the card's bound for the work (the softmax
-   kernel and its yardstick also as device time: 8 calls on 8 copies of the
-   logits in one CUDA graph, cold L2);
+   the same function, beside the card's bound for the work; the walks with
+   their launch (S blocks per tile, grid, threads, shared memory) as the
+   eager wrapper (20 calls) and as device time (8 calls on 8 copies of the
+   inputs in one CUDA graph, cold L2), as the softmax kernel;
 4. serve: answer 3 requests (synthetic batch -> host sort -> forward ->
    argmax over the 128 seeds, as ``OgbnPredictor.predict`` does per chunk),
    counting kernel launches;
@@ -68,8 +76,11 @@ presets, and checks every hand-written kernel on them:
    edges the caps dropped, with every launch asserted; a resumed run that
    trains exactly one more epoch; one producer item's loss and global
    gradient norm on the card against the CPU's plain path (dropout 0);
-   ``evaluate_ogbn`` of the best checkpoint in both modes; and that
-   checkpoint served by an ``OgbnPredictor``;
+   ``evaluate_ogbn`` of the best checkpoint in both modes; that
+   checkpoint served by an ``OgbnPredictor``; and the path's kernels
+   (``live_partials``, the pair and the slab on the src runs and
+   tab-window aux, ``segment_softmax_partials``) held against their plain
+   versions and timed on one item of the calibrated layout (D = 512);
 12. the OAG task family at the presets' full width (n_hid 400, 8 heads, 4
    layers, depth 6, width 128, batch 256) with the same flags, on the OAG
    proxy (the repo's ``examples/oag_scale_proxy.py`` build) at scale 0.1,
@@ -88,7 +99,8 @@ presets, and checks every hand-written kernel on them:
    steps' pace on items already on the card (no loader wait); and the three
    kernels of the path (``live_partials``, ``live_partials_pair`` on the
    runs and window aux, ``segment_softmax_partials``) held against their
-   plain versions on a real batch at the path's widths and timed;
+   plain versions on a real batch at the path's widths and timed (not the
+   slab: its contract takes 128-aligned halves, and D = 400);
 13. ``[link-serve]``: a ``LinkPredictor`` restored from ``[oag-link]``'s
    best checkpoint indexes 2,048 grouped authors (ms per chunk), then
    answers 8 JSON-lines requests of 1-256 papers through
@@ -113,6 +125,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import subprocess
@@ -151,6 +164,9 @@ from pyhgt_tpu_torch.ops.pallas_seg import (
     live_partials_pair_plain, live_partials_plain,
 )
 from pyhgt_tpu_torch.sampling.batch import pad_sample
+from pyhgt_tpu_torch.sampling.seg_cases import (
+    CASES as HARD_CASES, adversarial_auxes, on_nan_memory,
+)
 from pyhgt_tpu_torch.sampling.sorted_batch import (
     pallas_seg_aux_split, sort_batch, sort_edges,
 )
@@ -205,6 +221,7 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+@functools.cache
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -327,10 +344,91 @@ def record(name, source, line, err, ms, plain_ms, bound, library_ms,
             "library_ms": library_ms, **extra}
 
 
+def walk_outputs(gaux, D, n):
+    """The allocation of a walk's ``n`` outputs, as one shape: the wrappers
+    make them as views of one tensor."""
+    return [(n, gaux.num_blocks * gaux.w, D)]
+
+
+def check_walk(what, run, want, abs_sum, gaux, D):
+    """A walk kernel's outputs (``run()``: a tensor or a pair) against its
+    plain version's ``want`` (``abs_sum``: the plain version on the data's
+    magnitudes). For a runs aux, which the kernel writes whole into
+    uninitialised outputs, the outputs land on memory that held NaN: every
+    row must come back written, the rows no edge reaches exactly 0, and a
+    second call bit-identical. Returns the largest error."""
+    want = want if isinstance(want, tuple) else (want,)
+    abs_sum = abs_sum if isinstance(abs_sum, tuple) else (abs_sum,)
+    shapes = walk_outputs(gaux, D, len(want))
+    runs = not gaux.window
+
+    def call():
+        out = run()
+        return out if isinstance(out, tuple) else (out,)
+    got = on_nan_memory(call, shapes) if runs else call()
+    err = 0.0
+    for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
+        err = max(err, check_close(g, w, a, f"{what}[{i}]"))
+    if runs:
+        again = on_nan_memory(call, shapes)
+        reached = torch.zeros(shapes[0][1], dtype=torch.bool, device=g.device)
+        rows = out_rows(gaux)
+        reached[rows[rows >= 0]] = True
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        zero = not any(bool(g[~reached].any()) for g in got)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ok = same and zero and finite
+        log(f"[kernel] {what}: on NaN-filled torch.empty memory every row "
+            f"written {finite}, the {int((~reached).sum())} unreached rows "
+            f"all 0 {zero}, second call bit-identical {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}: a row unwritten, an unreached row "
+                                 "not 0, or two calls differ")
+    return err
+
+
+def time_walk(what, name, call, inputs, gaux, plain, library, library_name,
+              nbytes, bound):
+    """One walk kernel timed at one shape: its launch (``ps.walk_plan``),
+    the eager wrapper (CUDA events over 20 calls: inputs warm in L2), the
+    device time of ``COLD_COPIES`` calls on their own copies of the inputs
+    in one CUDA graph (cold L2), the plain version and the library call.
+    Prints the ``[time]`` line; returns the numbers."""
+    plan = ps.walk_plan(name, inputs[0], gaux)
+    ms = cuda_ms(lambda: call(*inputs))
+    copies = [[t.clone() for t in inputs] for _ in range(COLD_COPIES)]
+    cold_ms = graph_ms([lambda c=c: call(*c) for c in copies])
+    del copies
+    plain_ms = cuda_ms(lambda: plain(*inputs))
+    library_ms = cuda_ms(library)
+    log(f"[time] {what}: S={plan['split']}, grid ({plan['grid_x']}, "
+        f"{plan['grid_y']}) x {plan['threads']} threads, "
+        f"{plan['smem_bytes']} B shared, {plan['stage_rows']} rows a stage"
+        f"{' copied row by row' if plan['row_by_row'] else ''}; kernel "
+        f"{ms:.4f} ms eager ({nbytes / ms / 1e6:.1f} GB/s), {cold_ms:.4f} ms "
+        f"device time in a CUDA graph of {COLD_COPIES} calls on their own "
+        f"input copies (cold L2; {nbytes / cold_ms / 1e6:.1f} GB/s), plain "
+        f"{plain_ms:.4f} ms, {library_name} {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s): "
+        f"{bound / ms:.0%} of it eager, {bound / cold_ms:.0%} cold "
+        f"| {card_line()}")
+    return dict(ms=ms, graph_ms=cold_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound, **plan)
+
+
+def walk_keys(t, prefix=""):
+    """A timing's launch and cold time as record keys."""
+    return {f"{prefix}graph_ms": t["graph_ms"], f"{prefix}split": t["split"],
+            f"{prefix}grid": [t["grid_x"], t["grid_y"]],
+            f"{prefix}threads": t["threads"]}
+
+
 def phase_kernel(fl, dev, batch):
     """live_partials against its plain version at the main path's shapes,
-    for the capped (bench) and legacy aux, bf16 and f32; timed at the main
-    path's configuration (bf16, capped)."""
+    for the capped (bench) and legacy aux, bf16 and f32, on outputs whose
+    memory held NaN; timed at the main path's configuration (bf16,
+    capped)."""
     auxes = {
         "capped": fl.sort(batch, with_backward=False).pseg_tgt,
         "legacy": sort_batch(batch, fl.layout, fl.em,
@@ -350,13 +448,11 @@ def phase_kernel(fl, dev, batch):
         gaux = aux.to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x = base.to(dtype)
-            got = live_partials(x, gaux)
-            want = live_partials_plain(x, gaux)
-            abs_sum = live_partials_plain(x.abs(), gaux)
-            torch.cuda.synchronize()
-            max_err = max(max_err, check_close(
-                got, want, abs_sum, f"live_partials {aux_name} W={aux.w} "
-                f"V={aux.v} {str(dtype)[6:]} {tuple(x.shape)}"))
+            max_err = max(max_err, check_walk(
+                f"live_partials {aux_name} W={aux.w} V={aux.v} "
+                f"{str(dtype)[6:]} {tuple(x.shape)}",
+                lambda: live_partials(x, gaux), live_partials_plain(x, gaux),
+                live_partials_plain(x.abs(), gaux), gaux, x.shape[1]))
             if aux_name == "capped" and dtype == torch.bfloat16:
                 timed = (x, gaux)
 
@@ -364,16 +460,14 @@ def phase_kernel(fl, dev, batch):
     rows = out_rows(gaux)
     x32 = x.float()
     zeros = torch.zeros(gaux.num_blocks * gaux.w, x.shape[1], device=dev)
-    ms = cuda_ms(lambda: live_partials(x, gaux))
-    plain_ms = cuda_ms(lambda: live_partials_plain(x, gaux))
-    library_ms = cuda_ms(lambda: torch.index_add(zeros, 0, rows, x32))
     bound, nbytes = bound_ms(x, gaux)
-    log(f"[time] live_partials bf16 {tuple(x.shape)} W=V={gaux.w}: kernel "
-        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} "
-        f"ms, index_add (f32 source) {library_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
-    return record("live_partials", "live_partials", 759, max_err, ms,
-                  plain_ms, bound, library_ms)
+    t = time_walk(f"live_partials bf16 {tuple(x.shape)} W=V={gaux.w}",
+                  "live_partials", lambda a: live_partials(a, gaux), [x],
+                  gaux, lambda a: live_partials_plain(a, gaux),
+                  lambda: torch.index_add(zeros, 0, rows, x32),
+                  "index_add (f32 source)", nbytes, bound)
+    return record("live_partials", "live_partials", 759, max_err, t["ms"],
+                  t["plain_ms"], bound, t["library_ms"], **walk_keys(t))
 
 
 def split_aux(se):
@@ -401,8 +495,8 @@ def phase_pair_kernel(fl, dev, batch):
     sorted bench batch, bf16 and f32: the src runs aux (W = 384), the
     compacted tab-window aux (W = V = 64), the uncompacted one (no tab_cap:
     W = V = 240), the tab runs aux and the src singleton-split aux (dead
-    rows). Timed in bf16 in the two cases the train step runs: src runs and
-    compacted window."""
+    rows), the runs aux on outputs whose memory held NaN. Timed in bf16 in
+    the two cases the train step runs: src runs and compacted window."""
     se = fl.sort(batch)
     se_unc = sort_batch(batch, fl.layout, fl.em,
                         tgt_rank_cap=fl.cfg.seg_rank_cap)
@@ -432,14 +526,13 @@ def phase_pair_kernel(fl, dev, batch):
         kind = "window" if aux.window else "runs"
         for dtype in (torch.bfloat16, torch.float32):
             d1, d2 = b1.to(dtype), b2.to(dtype)
-            got = live_partials_pair(d1, d2, gaux)
-            want = live_partials_pair_plain(d1, d2, gaux)
-            abs_sum = live_partials_pair_plain(d1.abs(), d2.abs(), gaux)
-            torch.cuda.synchronize()
-            for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
-                errs[kind] = max(errs[kind], check_close(
-                    g, w, a, f"live_partials_pair[{i}] {name} W={aux.w} "
-                    f"V={aux.v} {str(dtype)[6:]} {tuple(d1.shape)}"))
+            errs[kind] = max(errs[kind], check_walk(
+                f"live_partials_pair {name} W={aux.w} V={aux.v} "
+                f"{str(dtype)[6:]} {tuple(d1.shape)}",
+                lambda: live_partials_pair(d1, d2, gaux),
+                live_partials_pair_plain(d1, d2, gaux),
+                live_partials_pair_plain(d1.abs(), d2.abs(), gaux), gaux,
+                d1.shape[1]))
             if dtype == torch.bfloat16 and name in ("src-runs", "tab-window"):
                 timed[kind] = (name, d1, d2, gaux)
 
@@ -448,20 +541,20 @@ def phase_pair_kernel(fl, dev, batch):
         rows = out_rows(gaux)
         f1, f2 = d1.float(), d2.float()
         zeros = torch.zeros(gaux.num_blocks * gaux.w, d1.shape[1], device=dev)
-        ms = cuda_ms(lambda: live_partials_pair(d1, d2, gaux))
-        plain_ms = cuda_ms(lambda: live_partials_pair_plain(d1, d2, gaux))
-        library_ms = cuda_ms(lambda: (torch.index_add(zeros, 0, rows, f1),
-                                      torch.index_add(zeros, 0, rows, f2)))
         bound, nbytes = bound_ms(d1, gaux, n_tensors=2)
-        log(f"[time] live_partials_pair {name} bf16 2 x {tuple(d1.shape)} "
-            f"W={gaux.w} V={gaux.v} -> 2 x {tuple(zeros.shape)}: kernel "
-            f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
-            f"{plain_ms:.4f} ms, two index_add (f32 sources) "
-            f"{library_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+        t = time_walk(
+            f"live_partials_pair {name} bf16 2 x {tuple(d1.shape)} "
+            f"W={gaux.w} V={gaux.v} -> 2 x {tuple(zeros.shape)}",
+            "live_partials_pair",
+            lambda a, b: live_partials_pair(a, b, gaux), [d1, d2], gaux,
+            lambda a, b: live_partials_pair_plain(a, b, gaux),
+            lambda: (torch.index_add(zeros, 0, rows, f1),
+                     torch.index_add(zeros, 0, rows, f2)),
+            "two index_add (f32 sources)", nbytes, bound)
         records.append(record(
             f"live_partials_pair ({kind} aux: {name})", "live_partials_pair",
-            275, errs[kind], ms, plain_ms, bound, library_ms, kind=kind))
+            275, errs[kind], t["ms"], t["plain_ms"], bound, t["library_ms"],
+            kind=kind, **walk_keys(t)))
     return records
 
 
@@ -473,8 +566,9 @@ def time_line(what, ms, nbytes, plain_ms, library, library_ms, bound):
 
 def phase_slab_kernel(fl, dev, batch):
     """live_partials_slab against its plain version on the two aux the slab
-    backward hands it (src runs, W = 384; compacted tab window, W = V = 64),
-    bf16 and f32 [E, 2 x 512] slabs; timed in bf16 on both."""
+    backward hands it (src runs, W = 384, on outputs whose memory held NaN;
+    compacted tab window, W = V = 64), bf16 and f32 [E, 2 x 512] slabs;
+    timed in bf16 on both."""
     se = fl.sort(batch)
     D = fl.cfg.n_hid
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -486,32 +580,37 @@ def phase_slab_kernel(fl, dev, batch):
         err = 0.0
         for dtype in (torch.bfloat16, torch.float32):
             x = base.to(dtype)
-            got = ps.live_partials_slab(x, gaux)
-            want = ps.live_partials_slab_plain(x, gaux)
-            abs_sum = ps.live_partials_slab_plain(x.abs(), gaux)
-            torch.cuda.synchronize()
-            for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
-                err = max(err, check_close(
-                    g, w, a, f"live_partials_slab[{i}] {name} W={aux.w} "
-                    f"V={aux.v} {str(dtype)[6:]} {tuple(x.shape)}"))
-        x = base.to(torch.bfloat16)
-        rows = out_rows(gaux)
-        f1, f2 = x[:, :D].float(), x[:, D:].float()
-        zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
-        ms = cuda_ms(lambda: ps.live_partials_slab(x, gaux))
-        plain_ms = cuda_ms(lambda: ps.live_partials_slab_plain(x, gaux))
-        library_ms = cuda_ms(lambda: (torch.index_add(zeros, 0, rows, f1),
-                                      torch.index_add(zeros, 0, rows, f2)))
-        bound, nbytes = bound_ms(x[:, :D], gaux, n_tensors=2)
-        time_line(f"live_partials_slab {name} bf16 {tuple(x.shape)} "
-                  f"W={gaux.w} V={gaux.v} -> 2 x {tuple(zeros.shape)}", ms,
-                  nbytes, plain_ms, "two index_add (f32 halves)", library_ms,
-                  bound)
+            err = max(err, check_walk(
+                f"live_partials_slab {name} W={aux.w} V={aux.v} "
+                f"{str(dtype)[6:]} {tuple(x.shape)}",
+                lambda: ps.live_partials_slab(x, gaux),
+                ps.live_partials_slab_plain(x, gaux),
+                ps.live_partials_slab_plain(x.abs(), gaux), gaux, D))
+        t = time_slab(f"live_partials_slab {name}", base.to(torch.bfloat16),
+                      gaux)
         records.append(record(
             f"live_partials_slab ({kind} aux: {name})", "live_partials_slab",
-            739, err, ms, plain_ms, bound, library_ms, counter=f"slab_{kind}",
-            launches_config='edge_bwd="slab"'))
+            739, err, t["ms"], t["plain_ms"], t["bound_ms"], t["library_ms"],
+            counter=f"slab_{kind}", launches_config='edge_bwd="slab"',
+            **walk_keys(t)))
     return records
+
+
+def time_slab(what, x, gaux):
+    """live_partials_slab timed on the bf16 slab ``x [E, 2D]``."""
+    D = x.shape[1] // 2
+    rows = out_rows(gaux)
+    f1, f2 = x[:, :D].float(), x[:, D:].float()
+    zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=x.device)
+    bound, nbytes = bound_ms(x[:, :D], gaux, n_tensors=2)
+    return time_walk(
+        f"{what} bf16 {tuple(x.shape)} W={gaux.w} V={gaux.v} -> 2 x "
+        f"{tuple(zeros.shape)}", "live_partials_slab",
+        lambda a: ps.live_partials_slab(a, gaux), [x], gaux,
+        lambda a: ps.live_partials_slab_plain(a, gaux),
+        lambda: (torch.index_add(zeros, 0, rows, f1),
+                 torch.index_add(zeros, 0, rows, f2)),
+        "two index_add (f32 halves)", nbytes, bound)
 
 
 def phase_weighted_kernel(fl, dev, batch):
@@ -1860,75 +1959,118 @@ def oag_item(cfg, graph, task, pairs, seeds_fn):
     return item, layout, em
 
 
-def phase_oag_kernels(dev, se, cfg):
-    """The three kernels of the OAG path held against their plain versions
-    on one real batch at its widths (rows of n_hid = 400, bf16 and f32;
-    logits of 8 heads), and timed in bf16 beside their bounds: a record per
-    kernel, with its shapes."""
+def oag_field_item(cfg, graph):
+    """One producer item of the paper-field task at ``cfg`` on a layout
+    calibrated as its runner calibrates it (:func:`oag_item`): returns
+    (item, layout, em, task, train pairs)."""
+    task = NodeClassificationTask(
+        graph=graph, sampler=make_sampler(cfg, graph, log=log), layout=None,
+        target_type="paper", label_meta=OAG_FIELD_LABEL,
+        batch_size=cfg.batch_size, feature_fn=feature_oag)
+    pairs = build_time_split_pairs(graph, task.rev_label_meta,
+                                   OAG_SPLITS)["train"]
+    crng = np.random.default_rng(cfg.seed + 7)
+    item, layout, em = oag_item(
+        cfg, graph, task, pairs, lambda: task.build_seeds(pairs, crng)[0])
+    return item, layout, em, task, pairs
+
+
+def phase_path_kernels(tag, dev, se, cfg):
+    """The kernels of a path held against their plain versions on one real
+    batch of it at its widths (rows of n_hid, bf16 and f32, the runs aux on
+    outputs whose memory held NaN; logits of n_heads), and timed in bf16
+    beside their bounds: ``live_partials`` on the target aux, the pair and
+    the slab on the src runs and tab-window aux, the softmax partials.
+    ``tag``: ``oag`` or ``ogbn``. Returns a dict of record keys, prefixed
+    with the tag, per kernel."""
     D, H = cfg.n_hid, cfg.n_heads
     gen = torch.Generator(device=dev).manual_seed(7)
     E = se.pseg_tgt.loc.size
+    n_tiles, K = se.pseg_tgt.loc.shape
+    pad = ~np.asarray(se.edge_mask).reshape(n_tiles, K)
+    log(f"[{tag}] the batch: {E} padded edges in {n_tiles} tiles of {K}, "
+        f"{int(pad.sum())} of them padding (share {pad.mean():.3f}); "
+        f"{int(pad.all(axis=1).sum())} tiles all padding; every walk reads "
+        "and sums them")
     b1 = torch.randn(E, D, generator=gen, device=dev)
     b2 = torch.randn(E, D, generator=gen, device=dev)
     out = {}
+
+    def keys(shape, err, t):
+        return {f"{tag}_shape": list(shape), f"{tag}_max_abs_err": err,
+                f"{tag}_ms": t["ms"], f"{tag}_plain_ms": t["plain_ms"],
+                f"{tag}_bound_ms": t["bound_ms"],
+                f"{tag}_library_ms": t["library_ms"],
+                **walk_keys(t, f"{tag}_")}
+
     gaux = se.pseg_tgt.to(dev)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         x = b1.to(dtype)
-        got, want = live_partials(x, gaux), live_partials_plain(x, gaux)
-        abs_sum = live_partials_plain(x.abs(), gaux)
-        torch.cuda.synchronize()
-        err = max(err, check_close(
-            got, want, abs_sum, f"[oag] live_partials legacy W={gaux.w} "
-            f"{str(dtype)[6:]} {tuple(x.shape)}"))
+        err = max(err, check_walk(
+            f"[{tag}] live_partials W={gaux.w} V={gaux.v} {str(dtype)[6:]} "
+            f"{tuple(x.shape)}", lambda: live_partials(x, gaux),
+            live_partials_plain(x, gaux), live_partials_plain(x.abs(), gaux),
+            gaux, D))
     x = b1.bfloat16()
     rows = out_rows(gaux)
     zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
     x32 = x.float()
-    ms = cuda_ms(lambda: live_partials(x, gaux))
-    plain_ms = cuda_ms(lambda: live_partials_plain(x, gaux))
-    library_ms = cuda_ms(lambda: torch.index_add(zeros, 0, rows, x32))
     bound, nbytes = bound_ms(x, gaux)
-    time_line(f"[oag] live_partials bf16 {tuple(x.shape)} legacy W={gaux.w}",
-              ms, nbytes, plain_ms, "index_add (f32 source)", library_ms,
-              bound)
-    out["live_partials"] = dict(oag_shape=list(x.shape), oag_max_abs_err=err,
-                                oag_ms=ms, oag_plain_ms=plain_ms,
-                                oag_bound_ms=bound,
-                                oag_library_ms=library_ms)
+    t = time_walk(f"[{tag}] live_partials bf16 {tuple(x.shape)} W={gaux.w} "
+                  f"V={gaux.v}", "live_partials",
+                  lambda a: live_partials(a, gaux), [x], gaux,
+                  lambda a: live_partials_plain(a, gaux),
+                  lambda: torch.index_add(zeros, 0, rows, x32),
+                  "index_add (f32 source)", nbytes, bound)
+    out["live_partials"] = keys(x.shape, err, t)
 
     auxes = {"runs": ("src-runs", se.pseg_src)}
     if se.ptab_src is not None:
         auxes["window"] = ("tab-window", se.ptab_src)
+    # the slab's contract takes 128-aligned halves (the OAG's D = 400 not)
+    slab_fits = D % 128 == 0
+    if not slab_fits:
+        log(f"[{tag}] live_partials_slab takes 128-aligned halves: not run "
+            f"at D = {D}")
     for kind, (name, aux) in auxes.items():
         gaux = aux.to(dev)
-        err = 0.0
+        err = slab_err = 0.0
         for dtype in (torch.bfloat16, torch.float32):
             d1, d2 = b1.to(dtype), b2.to(dtype)
-            got = live_partials_pair(d1, d2, gaux)
-            want = live_partials_pair_plain(d1, d2, gaux)
-            abs_sum = live_partials_pair_plain(d1.abs(), d2.abs(), gaux)
-            torch.cuda.synchronize()
-            for i, (g, w, a) in enumerate(zip(got, want, abs_sum)):
-                err = max(err, check_close(
-                    g, w, a, f"[oag] live_partials_pair[{i}] {name} "
-                    f"W={aux.w} V={aux.v} {str(dtype)[6:]} {tuple(d1.shape)}"))
+            err = max(err, check_walk(
+                f"[{tag}] live_partials_pair {name} W={aux.w} V={aux.v} "
+                f"{str(dtype)[6:]} {tuple(d1.shape)}",
+                lambda: live_partials_pair(d1, d2, gaux),
+                live_partials_pair_plain(d1, d2, gaux),
+                live_partials_pair_plain(d1.abs(), d2.abs(), gaux), gaux, D))
+            if not slab_fits:
+                continue
+            slab = torch.cat([d1, d2], dim=1)
+            slab_err = max(slab_err, check_walk(
+                f"[{tag}] live_partials_slab {name} W={aux.w} V={aux.v} "
+                f"{str(dtype)[6:]} {tuple(slab.shape)}",
+                lambda: ps.live_partials_slab(slab, gaux),
+                ps.live_partials_slab_plain(slab, gaux),
+                ps.live_partials_slab_plain(slab.abs(), gaux), gaux, D))
         d1, d2 = b1.bfloat16(), b2.bfloat16()
         f1, f2 = d1.float(), d2.float()
         rows = out_rows(gaux)
         zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
-        ms = cuda_ms(lambda: live_partials_pair(d1, d2, gaux))
-        plain_ms = cuda_ms(lambda: live_partials_pair_plain(d1, d2, gaux))
-        library_ms = cuda_ms(lambda: (torch.index_add(zeros, 0, rows, f1),
-                                      torch.index_add(zeros, 0, rows, f2)))
         bound, nbytes = bound_ms(d1, gaux, n_tensors=2)
-        time_line(f"[oag] live_partials_pair {name} bf16 2 x "
-                  f"{tuple(d1.shape)} W={gaux.w} V={gaux.v}", ms, nbytes,
-                  plain_ms, "two index_add (f32 sources)", library_ms, bound)
-        out[f"pair_{kind}"] = dict(
-            oag_shape=list(d1.shape), oag_max_abs_err=err, oag_ms=ms,
-            oag_plain_ms=plain_ms, oag_bound_ms=bound,
-            oag_library_ms=library_ms)
+        t = time_walk(
+            f"[{tag}] live_partials_pair {name} bf16 2 x {tuple(d1.shape)} "
+            f"W={gaux.w} V={gaux.v}", "live_partials_pair",
+            lambda a, b: live_partials_pair(a, b, gaux), [d1, d2], gaux,
+            lambda a, b: live_partials_pair_plain(a, b, gaux),
+            lambda: (torch.index_add(zeros, 0, rows, f1),
+                     torch.index_add(zeros, 0, rows, f2)),
+            "two index_add (f32 sources)", nbytes, bound)
+        out[f"pair_{kind}"] = keys(d1.shape, err, t)
+        if slab_fits:
+            slab = torch.cat([d1, d2], dim=1)
+            t = time_slab(f"[{tag}] live_partials_slab {name}", slab, gaux)
+            out[f"slab_{kind}"] = keys(slab.shape, slab_err, t)
 
     gaux = se.pseg_tgt.to(dev)
     att = torch.randn(E, H, generator=gen, device=dev) * 4
@@ -1940,13 +2082,13 @@ def phase_oag_kernels(dev, se, cfg):
     m_equal = bool(torch.equal(m, pm))
     err = (s - psum).abs().max().item()
     ok = m_equal and bool(((s - psum).abs() <= 1e-5 * psum.abs()).all())
-    log(f"[kernel] [oag] segment_softmax_partials legacy W={gaux.w} att "
+    log(f"[kernel] [{tag}] segment_softmax_partials W={gaux.w} att "
         f"{tuple(att.shape)} ({int((~mask).sum())} masked rows): max "
         f"bit-equal {m_equal}, sums max_abs_err {err:.3e} (tol 1e-5 x "
         f"|value|) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[oag] segment_softmax_partials disagrees with "
-                             "its plain version")
+        raise AssertionError(f"[{tag}] segment_softmax_partials disagrees "
+                             "with its plain version")
     rows = out_rows(gaux)
     idx = rows[:, None].expand(-1, H)
     ex = torch.exp(torch.clamp(att - pm[rows], max=80.0))
@@ -1959,14 +2101,119 @@ def phase_oag_kernels(dev, se, cfg):
     nbytes = (att.numel() * 4 + gaux.loc.numel() * 4 + gaux.loc.shape[0] * 4
               + 2 * m.numel() * 4)
     bound = max(nbytes / HBM_BYTES_PER_S, 5 * att.numel() / F32_FLOPS) * 1e3
-    time_line(f"[oag] segment_softmax_partials att {tuple(att.shape)} "
+    time_line(f"[{tag}] segment_softmax_partials att {tuple(att.shape)} "
               f"W={gaux.w} (eager wrapper)", ms, nbytes, plain_ms,
               "scatter_reduce(amax) + index_add of ready exps", library_ms,
               bound)
-    out["softmax"] = dict(oag_shape=list(att.shape), oag_max_abs_err=err,
-                          oag_ms=ms, oag_plain_ms=plain_ms,
-                          oag_bound_ms=bound, oag_library_ms=library_ms)
+    out["softmax"] = {f"{tag}_shape": list(att.shape),
+                      f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
+                      f"{tag}_plain_ms": plain_ms, f"{tag}_bound_ms": bound,
+                      f"{tag}_library_ms": library_ms}
     return out
+
+
+def ogbn_item(graph):
+    """One producer item of the ``[ogbn]`` path: the ``ogbn_mag`` preset
+    with the slice's flags, its layout calibrated as ``run_ogbn``
+    calibrates it, the loader's sample, pad and C++ sort with the
+    backward's aux. Returns (item, layout, cfg)."""
+    cfg = served_config()
+    sampler = make_sampler(cfg, graph, log=lambda msg: None)
+    crng = np.random.default_rng(cfg.seed + 7)
+    years = np.asarray(graph.aux["years"]).reshape(-1)
+
+    def cal_seeds():
+        pick = crng.choice(len(years), min(cfg.batch_size, len(years)),
+                           replace=False)
+        return {"paper": np.stack([pick, years[pick]], axis=1)}
+
+    layout = make_layout(cfg, graph, sampler=sampler, seeds_fn=cal_seeds)
+    em = EdgeStaticMeta.from_layout(layout)
+    task = OgbnNodeTask(graph=graph, sampler=sampler, layout=layout,
+                        batch_size=cfg.batch_size)
+    item = _make_producer(task.make_sample_fn("train"), layout, em)(
+        np.random.default_rng(12))
+    return item, layout, cfg
+
+
+def phase_ogbn_kernels(dev, graph):
+    """The walks and the softmax partials at the ``[ogbn]`` path's
+    calibrated layout (D = 512), on one item of it."""
+    item, layout, cfg = ogbn_item(graph)
+    se = item.se
+    log(f"[ogbn-kernels] one producer item on the calibrated layout (node "
+        f"cap {layout.node_cap}, {layout.num_edges} padded edges = "
+        f"{se.pseg_tgt.loc.shape[0]} tiles of {se.pseg_tgt.loc.shape[1]}): "
+        f"{item.n_edges} valid edges; target aux W={se.pseg_tgt.w} "
+        f"V={se.pseg_tgt.v}, tab aux "
+        f"{'window' if se.ptab_src is not None else 'none'}")
+    return phase_path_kernels("ogbn", dev, se, cfg)
+
+
+def phase_hard_kernels(dev):
+    """The walks on the hard layouts of ``sampling/seg_cases.py`` (a
+    whole-tile run, runs across every block boundary, a row per run, rows
+    that skip values, dead rows with all-dead tiles, the window at W = V =
+    240), at 6, 72 and 138 tiles (a tile split over 8, 4 and 2 blocks on
+    132 SMs), bf16 and f32, rows of 400 (the slab: halves of 384):
+    ``live_partials`` on every runs case, the pair and the slab on all;
+    each against its plain version, the runs aux on outputs whose memory
+    held NaN. Then each wrapper's host time per call (eager on 6 tiles).
+    Returns per kernel the largest error and the host floor."""
+    D = 400
+    DS = 384  # the slab's halves must be 128-aligned
+    errs = {"live_partials": 0.0, "pair": 0.0, "slab": 0.0}
+    splits = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n_tiles in (6, 72, 138):
+        for case, aux in adversarial_auxes(n_tiles).items():
+            gaux = aux.to(dev)
+            E = gaux.loc.numel()
+            base = torch.randn(E, 2 * D, generator=gen, device=dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                slab = base.to(dtype)
+                d1, d2 = slab[:, :D].contiguous(), slab[:, D:].contiguous()
+                what = f"[hard] {case} {n_tiles} tiles {str(dtype)[6:]}"
+                if not aux.window:
+                    errs["live_partials"] = max(errs["live_partials"], check_walk(
+                        f"{what} live_partials", lambda: live_partials(d1, gaux),
+                        live_partials_plain(d1, gaux),
+                        live_partials_plain(d1.abs(), gaux), gaux, D))
+                errs["pair"] = max(errs["pair"], check_walk(
+                    f"{what} live_partials_pair",
+                    lambda: live_partials_pair(d1, d2, gaux),
+                    live_partials_pair_plain(d1, d2, gaux),
+                    live_partials_pair_plain(d1.abs(), d2.abs(), gaux), gaux,
+                    D))
+                s2 = slab[:, :2 * DS].contiguous()
+                errs["slab"] = max(errs["slab"], check_walk(
+                    f"{what} live_partials_slab D={DS}",
+                    lambda: ps.live_partials_slab(s2, gaux),
+                    ps.live_partials_slab_plain(s2, gaux),
+                    ps.live_partials_slab_plain(s2.abs(), gaux), gaux, DS))
+            splits[(n_tiles, case)] = ps.walk_plan("live_partials_pair",
+                                                   d1, gaux)["split"]
+    log(f"[hard] every check passed; blocks per tile (S) by (tiles, case): "
+        f"{ {f'{n}/{c}': v for (n, c), v in splits.items()} }; largest "
+        f"errors {errs}")
+    # the wrappers' host time per call, which bounds an eager loop from
+    # below: eager calls on the smallest case (6 tiles), beside the same
+    # calls' device time in a CUDA graph
+    gaux = adversarial_auxes(6)["whole-tile"].to(dev)
+    x = torch.randn(gaux.loc.numel(), 2 * DS, generator=gen,
+                    device=dev).bfloat16()
+    d1, d2 = x[:, :DS].contiguous(), x[:, DS:].contiguous()
+    calls = {"live_partials": lambda: live_partials(d1, gaux),
+             "pair": lambda: live_partials_pair(d1, d2, gaux),
+             "slab": lambda: ps.live_partials_slab(x, gaux)}
+    floors = {k: (cuda_ms(f, iters=200, warmup=20), graph_ms([f] * 8))
+              for k, f in calls.items()}
+    log("[hard] host floor (eager wrapper on 6 tiles of 384 rows of "
+        f"{DS} bf16; its device time in a CUDA graph): " + ", ".join(
+            f"{k} {e:.4f} ms ({g:.4f})" for k, (e, g) in floors.items())
+        + f" | {card_line()}")
+    return {k: dict(max_abs_err=v, host_floor_ms=floors[k][0],
+                    floor_device_ms=floors[k][1]) for k, v in errs.items()}
 
 
 def phase_oag_field(dev, graph, workdir, profile=False):
@@ -2046,15 +2293,7 @@ def phase_oag_field(dev, graph, workdir, profile=False):
     total = {k: counts[k] + resumed[k] for k in counts}
 
     c0 = cfg.replace(dropout=0.0)
-    task = NodeClassificationTask(
-        graph=graph, sampler=make_sampler(c0, graph, log=log), layout=None,
-        target_type="paper", label_meta=OAG_FIELD_LABEL,
-        batch_size=c0.batch_size, feature_fn=feature_oag)
-    pairs = build_time_split_pairs(graph, task.rev_label_meta,
-                                   OAG_SPLITS)["train"]
-    crng = np.random.default_rng(c0.seed + 7)
-    item, layout, em = oag_item(
-        c0, graph, task, pairs, lambda: task.build_seeds(pairs, crng)[0])
+    item, layout, em, task, pairs = oag_field_item(c0, graph)
     log(f"[oag-field-cpu] one producer item on a calibrated layout (node cap "
         f"{layout.node_cap}, {layout.num_edges} padded edges): "
         f"{item.n_edges} valid edges, {item.overflow} dropped, live nodes "
@@ -2083,7 +2322,7 @@ def phase_oag_field(dev, graph, workdir, profile=False):
                      c0.n_layers, outputs)
     prefilled_epoch("oag-field", dev, cfg, task, layout, em, pairs,
                     oag_in_dim(graph), profile, workdir)
-    kernels = phase_oag_kernels(dev, item.se, cfg)
+    kernels = phase_path_kernels("oag", dev, item.se, cfg)
     log(f"[oag-field] phase done in {time.perf_counter() - t_phase:.1f} s")
     return total, kernels
 
@@ -2414,6 +2653,7 @@ def main():
               phase_head_sum_kernel(fl, dev),
               phase_weighted_kernel(fl, dev, batch),
               *phase_slab_kernel(fl, dev, batch)]
+    hard = phase_hard_kernels(dev)
     logp0, serve_counts = phase_requests(fl, n_edges)
     phase_cpu(logp0)
     train_counts, _ = phase_train(dev, batch, labels, n_edges)
@@ -2448,6 +2688,7 @@ def main():
         phase_predictor_cli(workdir)
         ogbn_counts = phase_ogbn(dev, pred.task.graph, workdir,
                                  profile=args.profile)
+        ogbn_kernels = phase_ogbn_kernels(dev, pred.task.graph)
         if args.profile:
             phase_profile(fl, batch, labels, pred)
         oag = oag_graph(workdir)
@@ -2474,6 +2715,8 @@ def main():
                           + single["launches_predictor"]
                           + single["launches_ogbn"] + single["launches_oag"])
     single.update(oag_kernels["live_partials"])
+    single.update(ogbn_kernels["live_partials"])
+    single.update({f"hard_{k}": v for k, v in hard["live_partials"].items()})
     for rec in pair:
         kind = rec.pop("kind")
         rec["launches_serve"] = serve_counts[f"pair_{kind}"]
@@ -2483,6 +2726,8 @@ def main():
         rec["launches"] = (rec["launches_train"] + rec["launches_ogbn"]
                            + rec["launches_oag"])
         rec.update(oag_kernels.get(f"pair_{kind}", {}))
+        rec.update(ogbn_kernels.get(f"pair_{kind}", {}))
+        rec.update({f"hard_{k}": v for k, v in hard["pair"].items()})
     for rec in others:
         counter = rec.pop("counter")
         if counter == "head_sum":
@@ -2499,6 +2744,11 @@ def main():
                                     + rec["launches_ogbn"]
                                     + rec["launches_oag"])
                 rec.update(oag_kernels["softmax"])
+                rec.update(ogbn_kernels["softmax"])
+            elif counter.startswith("slab_"):
+                rec.update(oag_kernels.get(counter, {}))
+                rec.update(ogbn_kernels.get(counter, {}))
+                rec.update({f"hard_{k}": v for k, v in hard["slab"].items()})
         if not rec["launches"]:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  "path")

@@ -1,7 +1,9 @@
-// Shared pieces of the segment-sum kernels (live_partials.cu,
-// live_partials_weighted.cu, pair_walk.cuh): 16-byte row vectors of f32 or
-// bf16 values widened to f32, the store of a finished run, and the launch
-// grid over (tile, column chunk).
+// Shared pieces of the segment-sum kernels (pair_walk.cuh, which
+// live_partials.cu, live_partials_pair.cu and live_partials_slab.cu build
+// on, and live_partials_weighted.cu): 16-byte row vectors of f32 or bf16
+// values widened to f32 and the store of a finished run; and
+// live_partials_weighted.cu's launch grid, one block per (tile, column
+// chunk).
 
 #pragma once
 

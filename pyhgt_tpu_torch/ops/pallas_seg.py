@@ -36,6 +36,7 @@ block), which only the pair and the slab take.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -55,15 +56,25 @@ PW = 384
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 12288  # the tile's loc row sits in 48 KB of shared memory
 _MAX_SMEM = 227 * 1024  # shared memory one Hopper block may opt in to
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _c_fn(name: str, argtypes):
-    """``<name>_launch`` of the library built from ``csrc/<name>.cu``."""
-    fn = getattr(cuda_build.load(name), f"{name}_launch")
+@functools.cache
+def _c_fn(name: str, argtypes: tuple, entry: str = "launch"):
+    """``<name>_<entry>`` of the library built from ``csrc/<name>.cu``, its
+    argument types set (once: the wrappers call it per launch)."""
+    fn = getattr(cuda_build.load(name), f"{name}_{entry}")
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     return fn
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current for a launch: none when
+    it already is (the C entry points launch on the current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 @dataclasses.dataclass
@@ -252,19 +263,37 @@ def _check_aux(data: torch.Tensor, aux: PallasSegAux):
         raise TypeError("aux.loc and aux.blk must be int32")
 
 
+def _outputs(aux: PallasSegAux, D: int, n: int, device):
+    """The kernels' ``n`` outputs ``[NB*W, D]`` f32, views of one
+    allocation: uninitialised for a runs aux, whose walk writes every row
+    itself (zeros included); zero-filled for a window aux (rows shared by
+    tiles, added with atomics) and a dead-rows aux (an all-dead tile has no
+    rows of its own to write)."""
+    make = torch.zeros if aux.window or aux.dead_rows else torch.empty
+    return make((n, aux.num_blocks * aux.w, D), dtype=torch.float32,
+                device=device).unbind(0)
+
+
+def _stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the raw ``cudaStream_t``
+    the C entry points take."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(data: torch.Tensor, aux: PallasSegAux) -> torch.Tensor:
     fn = _c_fn("live_partials",
-               [_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                _PTR])
+               (_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                _LONG, _PTR))
     n_tiles, K = aux.loc.shape
     D = data.shape[1]
-    with torch.cuda.device(data.device):
-        out = torch.zeros((aux.num_blocks * aux.w, D), dtype=torch.float32,
-                          device=data.device)
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+    with _on(data.device):
+        (out,) = _outputs(aux, D, 1, data.device)
+        stream = _stream(data.device)
         err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype],
                  aux.loc.data_ptr(), aux.blk.data_ptr(), out.data_ptr(),
-                 n_tiles, K, D, aux.w, int(aux.dead_rows), stream)
+                 n_tiles, K, D, aux.w, int(aux.dead_rows), out.shape[0],
+                 stream)
     if err:
         raise RuntimeError(f"live_partials kernel launch failed: cudaError {err}")
     return out
@@ -305,6 +334,10 @@ def _check_pair(d1: torch.Tensor, d2: torch.Tensor, aux: PallasSegAux):
 
 
 def _check_window_fits(aux: PallasSegAux):
+    """The window walk's sort (sorted loc and row [K] each, bins [W + V +
+    1], in ints) must fit 48 KB of shared memory; with the row ring (at most
+    16 KB, csrc/pair_walk.cuh) a block then stays far inside the 227 KB a
+    Hopper block may opt in to."""
     K = aux.loc.shape[1]
     if aux.window and 2 * K + aux.w + (aux.v or K) + 1 > _MAX_K:
         raise ValueError(
@@ -325,19 +358,17 @@ def _pair_kind(aux: PallasSegAux) -> int:
 
 def _launch_pair(d1, d2, aux: PallasSegAux):
     fn = _c_fn("live_partials_pair",
-               [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                _INT, _INT, _INT, _PTR])
+               (_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                _INT, _INT, _INT, _LONG, _PTR))
     n_tiles, K = aux.loc.shape
     D = d1.shape[1]
-    with torch.cuda.device(d1.device):
-        shape = (aux.num_blocks * aux.w, D)
-        o1 = torch.zeros(shape, dtype=torch.float32, device=d1.device)
-        o2 = torch.zeros(shape, dtype=torch.float32, device=d1.device)
-        stream = torch.cuda.current_stream(d1.device).cuda_stream
+    with _on(d1.device):
+        o1, o2 = _outputs(aux, D, 2, d1.device)
+        stream = _stream(d1.device)
         err = fn(d1.data_ptr(), d2.data_ptr(), _DTYPE_CODE[d1.dtype],
                  aux.loc.data_ptr(), aux.blk.data_ptr(), o1.data_ptr(),
                  o2.data_ptr(), n_tiles, K, D, aux.w, aux.w + (aux.v or K),
-                 _pair_kind(aux), stream)
+                 _pair_kind(aux), o1.shape[0], stream)
     if err:
         raise RuntimeError(
             f"live_partials_pair kernel launch failed: cudaError {err}")
@@ -392,18 +423,17 @@ def live_partials_slab_plain(data: torch.Tensor, aux: PallasSegAux):
 
 def _launch_slab(data, aux: PallasSegAux):
     fn = _c_fn("live_partials_slab",
-               [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                _INT, _INT, _PTR])
+               (_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                _INT, _INT, _LONG, _PTR))
     n_tiles, K = aux.loc.shape
     D = data.shape[1] // 2
-    with torch.cuda.device(data.device):
-        shape = (aux.num_blocks * aux.w, D)
-        o1 = torch.zeros(shape, dtype=torch.float32, device=data.device)
-        o2 = torch.zeros(shape, dtype=torch.float32, device=data.device)
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+    with _on(data.device):
+        o1, o2 = _outputs(aux, D, 2, data.device)
+        stream = _stream(data.device)
         err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype], aux.loc.data_ptr(),
                  aux.blk.data_ptr(), o1.data_ptr(), o2.data_ptr(), n_tiles, K,
-                 D, aux.w, aux.w + (aux.v or K), _pair_kind(aux), stream)
+                 D, aux.w, aux.w + (aux.v or K), _pair_kind(aux), o1.shape[0],
+                 stream)
     if err:
         raise RuntimeError(
             f"live_partials_slab kernel launch failed: cudaError {err}")
@@ -449,6 +479,34 @@ live_partials_slab.launches = 0
 live_partials_slab.window_launches = 0
 
 
+# ----------------------------------------------------- the walks' launches
+_PLAN_KEYS = ("split", "grid_x", "grid_y", "threads", "smem_bytes",
+              "stage_rows", "row_by_row")
+
+
+def walk_plan(name: str, data: torch.Tensor, aux: PallasSegAux) -> dict:
+    """The launch that ``name`` (``live_partials``, ``live_partials_pair``
+    or ``live_partials_slab``) makes for ``data`` (the slab: the whole
+    ``[E, 2D]`` slab) under ``aux`` on the current CUDA device, as
+    csrc/pair_walk.cuh plans it: ``split`` (S, the blocks of one tile's
+    cluster), the grid, threads per block, shared memory, rows per stage of
+    the copy ring and whether rows are copied one by one. For records and
+    logs; the wrappers do not call it."""
+    n_tiles, K = aux.loc.shape
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    dtype = _DTYPE_CODE[data.dtype]
+    D = data.shape[1] // 2 if name == "live_partials_slab" else data.shape[1]
+    if name == "live_partials":
+        err = _c_fn(name, (_INT,) * 5 + (_PTR,), "plan")(
+            dtype, n_tiles, K, D, int(aux.dead_rows), out)
+    else:
+        err = _c_fn(name, (_INT,) * 6 + (_PTR,), "plan")(
+            dtype, n_tiles, K, D, aux.w + (aux.v or K), _pair_kind(aux), out)
+    if err:
+        raise RuntimeError(f"{name}_plan failed: cudaError {err}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
 # -------------------------------------------------- live_partials_weighted
 def live_partials_weighted_plain(w: torch.Tensor, v: torch.Tensor, dk: int,
                                  aux: PallasSegAux) -> torch.Tensor:
@@ -460,14 +518,14 @@ def live_partials_weighted_plain(w: torch.Tensor, v: torch.Tensor, dk: int,
 
 def _launch_weighted(w, v, dk, aux: PallasSegAux):
     fn = _c_fn("live_partials_weighted",
-               [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                _INT, _INT, _PTR])
+               (_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                _INT, _INT, _PTR))
     n_tiles, K = aux.loc.shape
     D = v.shape[1]
-    with torch.cuda.device(v.device):
+    with _on(v.device):
         out = torch.zeros((aux.num_blocks * aux.w, D), dtype=torch.float32,
                           device=v.device)
-        stream = torch.cuda.current_stream(v.device).cuda_stream
+        stream = _stream(v.device)
         err = fn(w.data_ptr(), v.data_ptr(), _DTYPE_CODE[v.dtype],
                  aux.loc.data_ptr(), aux.blk.data_ptr(), out.data_ptr(),
                  n_tiles, K, D, D // dk, aux.w, int(aux.dead_rows), stream)
@@ -564,10 +622,10 @@ def head_sum_product(a: torch.Tensor, b: torch.Tensor, dk: int) -> torch.Tensor:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     fn = _c_fn("head_sum_product",
-               [_PTR, _PTR, _INT, _PTR, ctypes.c_longlong, _INT, _INT, _PTR])
-    with torch.cuda.device(a.device):
+               (_PTR, _PTR, _INT, _PTR, _LONG, _INT, _INT, _PTR))
+    with _on(a.device):
         out = torch.empty((E, D // dk), dtype=torch.float32, device=a.device)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+        stream = _stream(a.device)
         err = fn(a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype],
                  out.data_ptr(), E, D, dk, stream)
     if err:
@@ -658,13 +716,13 @@ def segment_softmax_partials(att: torch.Tensor, aux: PallasSegAux):
         raise ValueError(f"a tile of {K} x {H} logits takes {smem} bytes of "
                          f"shared memory, over {_MAX_SMEM}")
     fn = _c_fn("segment_softmax_partials",
-               [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                ctypes.c_longlong, _PTR])
-    with torch.cuda.device(att.device):
+               (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                _LONG, _PTR))
+    with _on(att.device):
         # every row is written by the kernel: no fill
         m = torch.empty((n_out, H), dtype=torch.float32, device=att.device)
         s = torch.empty((n_out, H), dtype=torch.float32, device=att.device)
-        stream = torch.cuda.current_stream(att.device).cuda_stream
+        stream = _stream(att.device)
         err = fn(att.data_ptr(), aux.loc.data_ptr(), aux.blk.data_ptr(),
                  m.data_ptr(), s.data_ptr(), n_tiles, K, H, aux.w, window,
                  n_out, stream)

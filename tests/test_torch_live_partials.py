@@ -17,9 +17,13 @@ import pytest
 import torch
 
 from pyhgt_tpu_torch.ops.pallas_seg import (
-    PK, PallasSegAux, _check, live_partials, live_partials_plain,
+    PK, PallasSegAux, _check, check_rows, live_partials, live_partials_plain,
+    out_rows,
 )
 from pyhgt_tpu_torch.ops.sorted_hgt import seg_sum_csr
+from pyhgt_tpu_torch.sampling.seg_cases import (
+    CASES as HARD_CASES, adversarial_auxes, on_nan_memory, segment_sum_f64,
+)
 from pyhgt_tpu_torch.sampling.sorted_batch import pallas_seg_aux
 
 
@@ -110,7 +114,7 @@ def test_plain_matches_jax_kernel(jax_side, E, S, n_pad, capped, dtype):
 
 
 @pytest.mark.parametrize("capped", [True, False], ids=["capped", "legacy"])
-def test_level2_matches_numpy_segment_sum(capped):
+def test_level2_matches_segment_sum_f64(capped):
     E, S, n_pad = 4 * PK, 300, 500
     keys = _keys(E, S, n_pad, 11)
     args, kw = _aux_args(keys, S, capped)
@@ -200,3 +204,62 @@ def test_cuda_kernel_matches_plain(capped, dtype):
     # version's atomics); the masked tail is one run of up to 384 unit
     # normals per tile, whose sum (~20) differs by a few ulps (~2e-6 each)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# the hard layouts of pyhgt_tpu_torch.sampling.seg_cases that a runs walk
+# takes (the window case is the pair's)
+RUNS_CASES = [c for c in HARD_CASES if c != "window"]
+
+
+@pytest.fixture(scope="module")
+def hard_auxes():
+    return adversarial_auxes(6)
+
+
+@pytest.mark.parametrize("case", RUNS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_on_adversarial_aux_matches_numpy(hard_auxes, case, dtype):
+    aux = hard_auxes[case]
+    check_rows(aux)
+    E = aux.loc.size
+    data = np.random.default_rng(9).normal(size=(E, 64)).astype(np.float32)
+    x = torch.from_numpy(data).to(getattr(torch, dtype))
+    got = live_partials(x, aux.to("cpu")).numpy()
+    ref, mag = segment_sum_f64(x.float().numpy(), aux)
+    # f32 sums of up to 384 terms in order: within (n - 1) 2^-24 of the sum
+    # of their magnitudes
+    assert np.all(np.abs(got - ref) <= 2.5e-5 * mag + 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles,D", [(6, 400), (72, 400), (138, 400),
+                                       (6, 2304)],
+                         ids=["6-tiles", "72-tiles", "138-tiles",
+                              "6-tiles-wide"])
+@pytest.mark.parametrize("case", RUNS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_on_adversarial_aux(n_tiles, D, case, dtype):
+    """The kernel against its plain version on the hard layouts, at tile
+    counts that split a tile over 8, 4 and 2 blocks on a 132-SM card (and
+    rows wider than one block's 256 column vectors, copied row by row), on
+    outputs whose memory held NaN: every row written, the rows no edge
+    reaches exactly 0, two calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gaux = adversarial_auxes(n_tiles)[case].to("cuda")
+    E = gaux.loc.numel()
+    x = torch.randn(E, D, generator=torch.Generator().manual_seed(n_tiles))
+    x = x.to(getattr(torch, dtype)).cuda()
+    shape = (gaux.num_blocks * gaux.w, D)
+    before = live_partials.launches
+    got = on_nan_memory(lambda: live_partials(x, gaux), [shape])
+    again = on_nan_memory(lambda: live_partials(x, gaux), [shape])
+    torch.cuda.synchronize()
+    assert live_partials.launches == before + 2
+    assert torch.equal(got, again)
+    want = live_partials_plain(x, gaux)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    reached = torch.zeros(shape[0], dtype=torch.bool, device="cuda")
+    rows = out_rows(gaux)
+    reached[rows[rows >= 0]] = True
+    assert not got[~reached].any()

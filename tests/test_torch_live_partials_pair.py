@@ -19,9 +19,13 @@ import torch
 
 from pyhgt_tpu_torch.ops.pallas_seg import (
     PK, PallasSegAux, _check, check_rows, live_partials, live_partials_pair,
-    live_partials_pair_plain,
+    live_partials_pair_plain, live_partials_slab, live_partials_slab_plain,
+    out_rows,
 )
 from pyhgt_tpu_torch.ops.sorted_hgt import seg_sum_csr
+from pyhgt_tpu_torch.sampling.seg_cases import (
+    CASES as HARD_CASES, adversarial_auxes, on_nan_memory, segment_sum_f64,
+)
 from pyhgt_tpu_torch.sampling.sorted_batch import (
     pallas_seg_aux, pallas_tab_window_aux,
 )
@@ -247,3 +251,69 @@ def test_cuda_kernel_matches_plain(kind, dtype):
     # run of up to 384 unit normals per tile
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def hard_auxes():
+    return adversarial_auxes(6)
+
+
+@pytest.mark.parametrize("case", HARD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_pair_on_adversarial_aux_matches_numpy(hard_auxes, case,
+                                                     dtype):
+    aux = hard_auxes[case]
+    check_rows(aux)
+    _, _, t1, t2 = _pair_data(aux.loc.size, 64, dtype, seed=13)
+    got = live_partials_pair(t1, t2, aux.to("cpu"))
+    for g, t in zip(got, (t1, t2)):
+        ref, mag = segment_sum_f64(t.float().numpy(), aux)
+        # f32 sums of up to 384 terms (a window row: a few hundred more):
+        # within (n - 1) 2^-24 of the sum of their magnitudes
+        assert np.all(np.abs(g.numpy() - ref) <= 6e-5 * mag + 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles,wide", [(6, False), (72, False),
+                                          (138, False), (6, True)],
+                         ids=["6-tiles", "72-tiles", "138-tiles",
+                              "6-tiles-wide"])
+@pytest.mark.parametrize("case", HARD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn", ["pair", "slab"])
+def test_cuda_kernel_on_adversarial_aux(n_tiles, wide, case, dtype, fn):
+    """The pair's kernels (and the slab's, which share them) against their
+    plain versions on the hard layouts, at tile counts that split a tile
+    over 8, 4 and 2 blocks on a 132-SM card (and rows wider than one
+    block's 256 column vectors, copied row by row), on outputs whose memory
+    held NaN: every row written, the rows no edge reaches exactly 0; a runs
+    aux gives bit-identical sums in two calls (a window aux adds with
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gaux = adversarial_auxes(n_tiles)[case].to("cuda")
+    # the OAG width for the pair; the slab takes 128-aligned halves
+    E, D = gaux.loc.numel(), 2304 if wide else 400 if fn == "pair" else 384
+    gen = torch.Generator().manual_seed(n_tiles)
+    slab = torch.randn(E, 2 * D, generator=gen).to(getattr(torch, dtype))
+    slab = slab.cuda()
+    d1, d2 = slab[:, :D].contiguous(), slab[:, D:].contiguous()
+    if fn == "pair":
+        run = lambda: live_partials_pair(d1, d2, gaux)  # noqa: E731
+        want = live_partials_pair_plain(d1, d2, gaux)
+    else:
+        run = lambda: live_partials_slab(slab, gaux)  # noqa: E731
+        want = live_partials_slab_plain(slab, gaux)
+    # the two outputs are views of one [2, NB*W, D] allocation
+    shape = (2, gaux.num_blocks * gaux.w, D)
+    got = on_nan_memory(run, [shape])
+    again = on_nan_memory(run, [shape])
+    torch.cuda.synchronize()
+    reached = torch.zeros(shape[1], dtype=torch.bool, device="cuda")
+    rows = out_rows(gaux)
+    reached[rows[rows >= 0]] = True
+    for g, a, w in zip(got, again, want):
+        if not gaux.window:
+            assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+        assert not g[~reached].any()
