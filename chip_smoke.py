@@ -106,7 +106,27 @@ presets, and checks every hand-written kernel on them:
    answers 8 JSON-lines requests of 1-256 papers through
    ``serve_link_jsonl``, timed by part (sampler, host sort, forward, score
    + top-k), launches asserted, the top-k scores against a float64
-   recomputation of the index product.
+   recomputation of the index product;
+14. ``[convs]``: every other conv of the JAX package (``dense_hgt``,
+   ``gcn``, ``gat``, ``rgcn``, ``han``, ``hetgnn``) trained by
+   ``run_node_classification`` at the paper_field preset's full width on
+   the OAG proxy, 2 steps, its validation batch and 10 test batches each,
+   printing the step, the peak memory and the loss, launches asserted
+   (DenseHGT's are HGT's, the baselines launch none), and one item's loss
+   and gradient norm against the CPU;
+15. ``[segment]``: HGT on the segment edge path (``--edge_impl segment``),
+   2 steps, no kernel launched, and one item's loss against the sorted
+   path's on the same weights;
+16. ``[dense-hgt-ogbn]``: ``run ogbn_mag --conv_name dense_hgt`` with the
+   slice's flags on the ogbn-mag proxy (1 epoch of 3 batches x 2, the test
+   split at ``vr_num`` 1), then ``run serve`` of its checkpoint answering 3
+   requests, launches asserted per step and per forward;
+17. ``[preprocess-oag]``: synthetic OAG TSVs in the reference layout
+   (12,000 papers, an L1/L2 field hierarchy, authors, affiliations,
+   venues, pretrained vectors, names) through ``run preprocess_oag``, then
+   ``run paper_field`` on the built graph for 2 steps at full width;
+18. ``[convert]``: a graph pickled as the reference pickles it, read by
+   ``run``'s ``load_graph`` through the converter and sampled once.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -128,6 +148,7 @@ import dataclasses
 import functools
 import io
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -147,14 +168,15 @@ from pyhgt_tpu_torch.datasets.oag_proxy import build as build_oag_proxy
 from pyhgt_tpu_torch.experiments.engine import (
     OAG_SPLITS, TRAIN_SPAN, _label_step_args, _loader, _make_producer,
     _producer_for, _train_epoch, evaluate_ogbn, link_matcher, make_layout,
-    make_sampler, make_tx, node_classifier, run_author_disambiguation,
-    run_node_classification, run_ogbn,
+    make_sampler, make_tx, node_classifier, raw_edges,
+    run_author_disambiguation, run_node_classification, run_ogbn,
 )
 from pyhgt_tpu_torch.experiments.serving import (
     LinkPredictor, OgbnPredictor, serve_jsonl, serve_link_jsonl,
 )
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
 from pyhgt_tpu_torch.graph.csr import CSRGraph
+from pyhgt_tpu_torch.models.model import SORTED_CONVS
 from pyhgt_tpu_torch.native import build as native_build
 from pyhgt_tpu_torch.ops import cuda_build, sorted_hgt
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
@@ -164,6 +186,7 @@ from pyhgt_tpu_torch.ops.pallas_seg import (
     live_partials_pair_plain, live_partials_plain,
 )
 from pyhgt_tpu_torch.sampling.batch import pad_sample
+from pyhgt_tpu_torch.sampling.hgsampler import HGSampler
 from pyhgt_tpu_torch.sampling.seg_cases import (
     CASES as HARD_CASES, adversarial_auxes, on_nan_memory,
 )
@@ -1716,15 +1739,9 @@ def phase_ogbn_cpu(dev, graph, cfg):
         f"{item.overflow} dropped (the uncalibrated layout)")
     model = node_classifier(cfg, layout, tb.sub.node_feat.shape[-1],
                             task.n_classes, seed=3)
-
-    def args(device):
-        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-        return (t(tb.sub.node_feat), t(tb.sub.node_mask), item.se.to(device),
-                t(tb.labels), t(tb.label_mask))
-
     card_against_cpu("ogbn-cpu", dev, model,
-                     lambda m, d: task.make_loss_fn(m, em.to(d)), args,
-                     cfg.n_layers)
+                     lambda m, d: task.make_loss_fn(m, em.to(d)),
+                     label_args(tb, item.se, model), cfg.n_layers)
 
 
 # the OAG phases: the OAG proxy (the repo's examples/oag_scale_proxy.py
@@ -1840,14 +1857,15 @@ def per_type_nodes(item, layout):
 
 
 def card_against_cpu(tag, dev, model, loss_fn, args, n_layers,
-                     outputs=None):
+                     outputs=None, expected=None):
     """``loss_fn(m, em_on_device)(None, *args(device))`` forward and
     backward with ``model``'s weights on the card and on the CPU (dropout
     0, TF32 off): the loss and the global gradient norm within CPU_TOL, and
-    the launches of one train step on the card. ``outputs(m, device)``, when
-    given, names tensors of the forward (its live rows) that must agree to
-    CPU_TOL as max |card - CPU| over max |CPU|: a loss can sit at a value
-    that does not depend on them. Returns the card's counts."""
+    the launches of one train step on the card (``expected(counts)``, by
+    default the HGT path's). ``outputs(m, device)``, when given, names
+    tensors of the forward (its live rows) that must agree to CPU_TOL as
+    max |card - CPU| over max |CPU|: a loss can sit at a value that does
+    not depend on them. Returns the card's counts."""
     res, outs = {}, {}
     for role, device in (("card", dev), ("cpu", torch.device("cpu"))):
         m = model.to(device)
@@ -1859,8 +1877,11 @@ def card_against_cpu(tag, dev, model, loss_fn, args, n_layers,
         t0 = time.perf_counter()
         loss = loss_fn(m, device)(None, *args(device))
         loss.backward()
+        # (DenseHGT's per-type norm parameters exist unused without
+        # use_norm, as in the JAX package: no gradient)
         norm = torch.linalg.vector_norm(torch.stack(
-            [p.grad.float().norm() for p in m.parameters()])).item()
+            [p.grad.float().norm() for p in m.parameters()
+             if p.grad is not None])).item()
         res[role] = (loss.item(), norm, time.perf_counter() - t0)
         if role == "card":
             counts = read_counts()
@@ -1869,7 +1890,8 @@ def card_against_cpu(tag, dev, model, loss_fn, args, n_layers,
                 outs[role] = {k: v.float().cpu()
                               for k, v in outputs(m, device).items()}
     (lg, ng, _), (lc, nc, tc) = res["card"], res["cpu"]
-    want = ogbn_expected(n_layers, 1, 0, counts)
+    want = (ogbn_expected(n_layers, 1, 0, counts) if expected is None
+            else expected(counts))
     loss_err, norm_err = abs(lg - lc), abs(ng - nc) / max(nc, 1e-12)
     ok = (loss_err <= CPU_TOL and norm_err <= CPU_TOL and counts == want
           and np.isfinite([lg, ng]).all())
@@ -1915,7 +1937,7 @@ def prefilled_epoch(tag, dev, cfg, task, layout, em, pairs, in_dim,
         items = loader.take(steps)
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev)
-    step_args = _label_step_args(dev)
+    step_args = _label_step_args(dev, model)
 
     def epoch(i):
         t0 = time.perf_counter()
@@ -2302,11 +2324,7 @@ def phase_oag_field(dev, graph, workdir, profile=False):
     model = node_classifier(c0, layout, oag_in_dim(graph), task.n_classes,
                             seed=3, head_mode="seeds")
     tb = item.tb
-
-    def args(device):
-        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-        return (t(tb.sub.node_feat), t(tb.sub.node_mask), item.se.to(device),
-                t(tb.labels), t(tb.label_mask))
+    args = label_args(tb, item.se, model)
 
     live = torch.as_tensor(tb.sub.node_mask)
     seeds = torch.as_tensor(tb.label_mask)
@@ -2336,14 +2354,8 @@ def phase_oag_venue(dev, workdir):
             "--device", dev.type, "--model_dir", cfg.model_dir,
             "--n_epoch", "1", "--n_batch", str(cfg.n_batch), "--seg_pallas",
             "--edge_bf16", "--softmax_pallas"]
-    torch.cuda.synchronize()
-    reset_counts()
     t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = run_cli.main(argv)
-    counts = read_counts()
-    lines = buf.getvalue().splitlines()
+    rc, lines, counts = run_main(argv)
     for line in lines:
         if line.startswith(("layout:", "epoch", "test NDCG")):
             log(f"[oag-venue]   {line}")
@@ -2628,6 +2640,438 @@ def phase_profile(fl, batch, labels, pred):
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
 
 
+# the [convs] phase: every conv of the JAX package but HGT (which the phases
+# above run) at the paper_field preset's full width with the slice's flags,
+# through the runner's normal entry, each cut to 2 train steps (n_batch 1 x
+# repeat 2), its validation batch and the runner's 10 test batches
+NEW_CONVS = ("dense_hgt", "gcn", "gat", "rgcn", "han", "hetgnn")
+CONV_CUTS = dict(n_epoch=1, n_batch=1)
+
+
+def sorted_path(cfg):
+    """Whether ``cfg``'s conv runs the sorted edge path, and its kernels
+    (HGT and DenseHGT there; the segment path and the baselines reduce
+    with ``index_add_`` and ``scatter_reduce``)."""
+    return cfg.conv_name in SORTED_CONVS and cfg.edge_impl == "sorted"
+
+
+def conv_expected(cfg, steps, forwards, counts):
+    """The launches of ``steps`` train steps and ``forwards`` forwards of
+    ``cfg``'s conv: the HGT path's on the sorted edge path, else none."""
+    if sorted_path(cfg):
+        return ogbn_expected(cfg.n_layers, steps, forwards, counts)
+    return dict(NO_LAUNCH)
+
+
+def label_args(tb, se, model):
+    """``args(device)`` of a labelled item for :func:`card_against_cpu`:
+    the loss closure's arguments, the raw edges last for a model that
+    reads them."""
+    def args(device):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return (t(tb.sub.node_feat), t(tb.sub.node_mask), se.to(device),
+                t(tb.labels), t(tb.label_mask),
+                raw_edges(model, tb.sub, device))
+    return args
+
+
+def conv_run(tag, cfg, graph, dev):
+    """``run_node_classification`` of ``cfg`` on ``graph`` (KL over the
+    multi-hot L2 fields, ``feature_oag``): its epoch line with the peak
+    memory, launches asserted. Returns (counts, history record)."""
+    steps = cfg.n_batch * cfg.repeat
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_node_classification(
+        cfg, graph, label_meta=OAG_FIELD_LABEL, multi_label=True,
+        feature_fn=feature_oag, log=logs.append, device=dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (h,) = out["history"]
+    forwards = 1 + OAG_TEST_BATCHES
+    want = conv_expected(cfg, steps, forwards, counts)
+    ok = (bool(np.isfinite(h["loss"])) and counts == want
+          and (not sorted_path(cfg)
+               or counts["pair_runs"] >= cfg.n_layers * steps)
+          and 0 <= out["test_ndcg"] <= 1)
+    log(f"[{tag}] conv_name {cfg.conv_name}, edge_impl {cfg.edge_impl}: "
+        f"run_node_classification in {secs:.1f} s; {layout_line(logs)}; "
+        f"{steps} steps: loss {h['loss']:.4f}, step {h['step_ms']:.2f} ms "
+        f"(CUDA events, the step after the first, same item), loader wait "
+        f"{h['wait_ms']:.2f} ms/step, peak memory {peak:.2f} GiB; valid "
+        f"NDCG {h['valid_ndcg']:.4f}, test NDCG {out['test_ndcg']:.4f}; "
+        f"launches over {steps} steps and {forwards} forwards {counts} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        log("\n".join(logs[-20:]))
+        raise AssertionError(f"[{tag}] {cfg.conv_name} failed")
+    return counts, h
+
+
+def phase_convs(dev, graph, workdir):
+    """Each conv of :data:`NEW_CONVS` trained by ``run_node_classification``
+    at the paper_field preset's full width (:func:`conv_run`), its steps'
+    pace on items already on the card (:func:`prefilled_epoch`: 8 steps,
+    no loader wait, which the runner's 2 steps hold), then one producer
+    item's loss and gradient norm on the card against the CPU's plain path
+    (dropout 0, TF32 off). Returns DenseHGT's launches, the sorted path's
+    kernels under another update half."""
+    t_phase = time.perf_counter()
+    base = oag_config("paper_field", workdir).replace(**CONV_CUTS)
+    log(f"[convs] the paper_field preset (n_hid {base.n_hid}, "
+        f"{base.n_heads} heads, {base.n_layers} layers, depth "
+        f"{base.sample_depth}, width {base.sample_width}, batch "
+        f"{base.batch_size}) with --seg_pallas --edge_bf16 --softmax_pallas "
+        f"for each of {', '.join(NEW_CONVS)}: n_epoch {base.n_epoch}, "
+        f"n_batch {base.n_batch} x repeat {base.repeat}")
+    c0 = base.replace(dropout=0.0)
+    item, layout, em, task, pairs = oag_field_item(c0, graph)
+    dense = None
+    for conv in NEW_CONVS:
+        cfg = base.replace(conv_name=conv,
+                           model_dir=str(workdir / f"convs_{conv}"))
+        counts, _ = conv_run("convs", cfg, graph, dev)
+        if conv == "dense_hgt":
+            dense = counts
+        prefilled_epoch(f"convs-{conv}", dev,
+                        oag_config("paper_field", workdir).replace(
+                            conv_name=conv),
+                        task, layout, em, pairs, oag_in_dim(graph), False,
+                        workdir)
+        model = node_classifier(c0.replace(conv_name=conv), layout,
+                                oag_in_dim(graph), task.n_classes, seed=3,
+                                head_mode="seeds")
+        card_against_cpu(
+            f"convs-{conv}-cpu", dev, model,
+            lambda m, d: task.make_loss_fn(m, em.to(d)),
+            label_args(item.tb, item.se, model), c0.n_layers,
+            expected=lambda counts, c=c0.replace(conv_name=conv):
+                conv_expected(c, 1, 0, counts))
+    log(f"[convs] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dense
+
+
+def phase_segment(dev, graph, workdir):
+    """HGT on the segment edge path (``--edge_impl segment``) at the
+    paper_field preset's full width: 2 train steps through the runner, no
+    kernel launched, and the steps' pace on items already on the card
+    (:func:`prefilled_epoch`); then one producer item's loss on the segment
+    path against the sorted path's (the slice's flags) on the same
+    weights, dropout 0."""
+    t_phase = time.perf_counter()
+    cfg = oag_config("paper_field", workdir).replace(
+        **CONV_CUTS, edge_impl="segment",
+        model_dir=str(workdir / "segment"))
+    conv_run("segment", cfg, graph, dev)
+    c0 = cfg.replace(dropout=0.0)
+    item, layout, em, task, pairs = oag_field_item(c0, graph)
+    prefilled_epoch("segment", dev, oag_config("paper_field", workdir).replace(
+        edge_impl="segment"), task, layout, em, pairs, oag_in_dim(graph),
+        False, workdir)
+    losses, weights = {}, {}
+    for impl in ("segment", "sorted"):
+        model = node_classifier(c0.replace(edge_impl=impl), layout,
+                                oag_in_dim(graph), task.n_classes, seed=3,
+                                head_mode="seeds").to(dev)
+        weights[impl] = model.state_dict()
+        reset_counts()
+        with torch.no_grad():
+            loss = task.make_loss_fn(model, em.to(dev))(
+                None, *label_args(item.tb, item.se, model)(dev))
+        losses[impl] = (loss.item(), read_counts())
+    same = all(torch.equal(v, weights["sorted"][k])
+               for k, v in weights["segment"].items())
+    (ls, cs), (lo, co) = losses["segment"], losses["sorted"]
+    ok = (same and abs(ls - lo) <= CPU_TOL and np.isfinite(ls)
+          and cs == NO_LAUNCH and co == ogbn_expected(c0.n_layers, 0, 1, co))
+    log(f"[segment] one item, the same weights, dropout 0: loss {ls:.5f} on "
+        f"the segment path (f32, launches {cs}) against {lo:.5f} on the "
+        f"sorted path (bf16 edge stage, kernels: {co}); |diff| "
+        f"{abs(ls - lo):.2e} (tol {CPU_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[segment] the edge paths disagree")
+    log(f"[segment] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# [dense-hgt-ogbn]: the ogbn_mag CLI with DenseHGT, cut in length only (the
+# preset's 100 epochs of 32 x 2, the test split at vr_num 8: here 2 epochs
+# of 3 x 2, the second's steps to set beside [ogbn]'s); then served
+DENSE_OGBN_ARGS = ["--n_epoch", "2", "--n_batch", "3", "--vr_num", "1"]
+DENSE_SERVE_REQUESTS = [1, 16, 128]
+
+
+def run_main(argv, stdin_text=None):
+    """``run.main(argv)`` in process with its stdout captured (and
+    ``stdin_text`` as its stdin): returns (exit code, stdout lines,
+    launches)."""
+    buf = io.StringIO()
+    old = sys.stdin
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        if stdin_text is not None:
+            sys.stdin = io.StringIO(stdin_text)
+        with contextlib.redirect_stdout(buf):
+            rc = run_cli.main(argv)
+    finally:
+        sys.stdin = old
+    return rc, buf.getvalue().splitlines(), read_counts()
+
+
+def phase_dense_hgt_ogbn(dev, graph, workdir):
+    """``python -m pyhgt_tpu_torch.run ogbn_mag --conv_name dense_hgt
+    --seg_pallas --edge_bf16 --softmax_pallas`` in process on the ogbn-mag
+    proxy's save_dir, launches per step and per forward asserted, then
+    ``run serve`` of its best checkpoint answering 3 requests, launches
+    asserted. Returns the launches of both runs."""
+    t_phase = time.perf_counter()
+    model_dir = workdir / "dense_ogbn"
+    data = str(workdir / "graph")
+    flags = ["--device", dev.type, "--conv_name", "dense_hgt",
+             "--seg_pallas", "--edge_bf16", "--softmax_pallas"]
+    argv = ["ogbn_mag", "--data", data, "--model_dir", str(model_dir),
+            *flags, *DENSE_OGBN_ARGS]
+    cfg = served_config().replace(conv_name="dense_hgt", n_epoch=2,
+                                  n_batch=3, vr_num=1)
+    t0 = time.perf_counter()
+    rc, lines, counts = run_main(argv)
+    secs = time.perf_counter() - t0
+    for line in lines:
+        if line.startswith(("layout:", "epoch", "test acc")):
+            log(f"[dense-hgt-ogbn]   {line}")
+    recs = [json.loads(l) for l in
+            (model_dir / "ogbn_mag_metrics.jsonl").read_text().splitlines()]
+    hist = [r for r in recs if r.get("event") == "epoch"]
+    epoch_steps = cfg.n_batch * cfg.repeat
+    steps = epoch_steps * cfg.n_epoch
+    n_test = int(np.asarray(graph.aux["test_mask"]).sum())
+    n_valid = 4 * cfg.n_epoch
+    forwards = n_valid + -(-n_test // cfg.batch_size) * cfg.vr_num
+    want = ogbn_expected(cfg.n_layers, steps, forwards, counts)
+    best = model_dir / "ogbn_mag_dense_hgt"
+    ok = (rc == 0 and counts == want and len(hist) == cfg.n_epoch
+          and all(np.isfinite(h["loss"]) for h in hist)
+          and counts["pair_runs"] >= cfg.n_layers * steps
+          and (best / "state.pt").exists())
+    for h in hist:
+        log(f"[dense-hgt-ogbn] epoch {h['epoch']}: loss {h['loss']:.4f}, step "
+            f"{h['step_ms']:.2f} ms mean, {h['step_ms_max']:.2f} max (the "
+            f"{epoch_steps - 1} steps after the epoch's first, by CUDA "
+            f"events), loader wait {h['wait_ms']:.2f} ms/step, "
+            f"{h['edges_per_s']:.6g} train edges/s")
+    log(f"[dense-hgt-ogbn] run.main({' '.join(argv[:1] + argv[3:])}) exit "
+        f"{rc} in {secs:.1f} s; launches over {steps} steps and {forwards} "
+        f"forwards ({n_valid} validation, {forwards - n_valid} VR over "
+        f"{n_test} test papers) {counts} (expected {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        log("\n".join(lines[-40:]))
+        raise AssertionError("[dense-hgt-ogbn] the DenseHGT run failed")
+
+    rng = np.random.default_rng(45)
+    reqs = [{"nodes": rng.choice(graph.num_nodes["paper"], n,
+                                 replace=False).tolist(), "vr_num": 1}
+            for n in DENSE_SERVE_REQUESTS]
+    t0 = time.perf_counter()
+    rc, lines, served = run_main(
+        ["serve", "--data", data, "--ckpt", str(best), *flags],
+        "".join(json.dumps(r) + "\n" for r in reqs))
+    secs = time.perf_counter() - t0
+    n_fwd = sum(-(-len(r["nodes"]) // cfg.batch_size) for r in reqs)
+    want_s = scaled(PREDICTOR_FORWARD, cfg.n_layers * n_fwd)
+    answers = [json.loads(l) for l in lines]
+    ok = (rc == 0 and served == want_s and len(answers) == len(reqs)
+          and all(a["nodes"] == r["nodes"] and len(a["pred"]) == len(r["nodes"])
+                  and all(0 <= c < 349 for c in a["pred"])
+                  for a, r in zip(answers, reqs)))
+    log(f"[dense-hgt-ogbn-serve] run serve --ckpt {best.name} --conv_name "
+        f"dense_hgt: {len(answers)} answers to requests of "
+        f"{DENSE_SERVE_REQUESTS} papers in {secs:.1f} s with the predictor's "
+        f"build; launches over {n_fwd} forwards {served} (expected {want_s}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[dense-hgt-ogbn-serve] the checkpoint did not "
+                             "serve")
+    log(f"[dense-hgt-ogbn] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] + served[k] for k in NO_LAUNCH}
+
+
+# [preprocess-oag]: synthetic OAG TSVs in the reference layout
+# (pyhgt_tpu_torch/datasets/oag.py) from a seed; papers over 2000-2019,
+# most of them cited enough to pass the filter
+PRE_PAPERS, PRE_AUTHORS, PRE_AFFILS, PRE_VENUES = 12_000, 6_000, 300, 200
+PRE_L1, PRE_L2 = 20, 200
+PRE_MIN_PAPERS = 10_000
+
+
+def write_oag_tsvs(d: Path, seed=0) -> None:
+    """``Papers_CS``, ``PR_CS``, ``PF_CS``, ``FHierarchy``, ``PAuAf_CS``,
+    ``vfi_vector`` and ``SeqName_CS`` (suffix ``_20190919.tsv``) in
+    ``d``: a field hierarchy of L1 and L2 fields, venues of two types,
+    authors with affiliations and positions, citations from newer papers
+    and from outside the set, 400-wide pretrained vectors for the venues,
+    fields and affiliations, and names."""
+    rng = np.random.default_rng(seed)
+    d.mkdir(parents=True)
+    sfx = "_CS_20190919.tsv"
+
+    def write(name, rows, header=True):
+        with open(d / name, "w") as f:
+            if header:
+                f.write("h\t" * 6 + "\n")
+            f.writelines("\t".join(map(str, r)) + "\n" for r in rows)
+
+    years = rng.integers(2000, 2020, PRE_PAPERS)
+    venue_type = rng.choice(["Journal", "Conference"], PRE_VENUES)
+    venue = rng.integers(0, PRE_VENUES, PRE_PAPERS)
+    lang = np.where(rng.random(PRE_PAPERS) < 0.97, "en", "zh")
+    write(f"Papers{sfx}", (
+        [f"p{i}", years[i], f"title of paper {i}", f"v{venue[i]}", lang[i],
+         "x", venue_type[venue[i]], "t"] for i in range(PRE_PAPERS)))
+    by_year = np.argsort(years, kind="stable")
+    cites = []
+    for i in range(PRE_PAPERS):
+        # the filter's bar, min(2020 - year, 20); 3% fall one short of it
+        need = min(2020 - int(years[i]), 20)
+        n = need - 1 if rng.random() < 0.03 else need + int(rng.integers(0, 3))
+        newer = by_year[np.searchsorted(years[by_year], years[i]):]
+        newer = newer[newer != i]
+        k = min(n, 3, len(newer))
+        cites += [[f"p{j}", f"p{i}"] for j in rng.choice(newer, k)]
+        cites += [[f"e{i}_{j}", f"p{i}"] for j in range(n - k)]
+    write(f"PR{sfx}", cites)
+    l2_parent = rng.integers(0, PRE_L1, PRE_L2)
+    write("FHierarchy_20190919.tsv",
+          ([f"f2_{j}", f"f1_{l2_parent[j]}", "L2", "L1"]
+           for j in range(PRE_L2)))
+    pf = []
+    for i in range(PRE_PAPERS):
+        l2 = rng.choice(PRE_L2, int(rng.integers(1, 3)), replace=False)
+        pf += [[f"p{i}", f"f2_{j}"] for j in l2]
+        pf.append([f"p{i}", f"f1_{l2_parent[l2[0]]}"])
+    write(f"PF{sfx}", pf)
+    affil = rng.integers(0, PRE_AFFILS, PRE_AUTHORS)
+    pa = []
+    for i in range(PRE_PAPERS):
+        for pos, a in enumerate(rng.choice(PRE_AUTHORS,
+                                           int(rng.integers(1, 5)),
+                                           replace=False), start=1):
+            pa.append([f"p{i}", f"a{a}", f"af{affil[a]}", "x", pos])
+    write(f"PAuAf{sfx}", pa)
+    ids = ([f"v{j}" for j in range(PRE_VENUES)]
+           + [f"f1_{j}" for j in range(PRE_L1)]
+           + [f"f2_{j}" for j in range(PRE_L2)]
+           + [f"af{j}" for j in range(PRE_AFFILS)])
+    vecs = rng.normal(size=(len(ids), 400)).round(3)
+    write("vfi_vector.tsv", ([i, " ".join(map(str, v))]
+                             for i, v in zip(ids, vecs)), header=False)
+    write(f"SeqName{sfx}", (
+        [[f"v{j}", f"venue {j}", venue_type[j].lower()]
+         for j in range(PRE_VENUES)]
+        + [[f"f1_{j}", f"field {j}", "fos"] for j in range(PRE_L1)]
+        + [[f"f2_{j}", f"subfield {j}", "fos"] for j in range(PRE_L2)]
+        + [[f"a{j}", f"author {j}", "author"] for j in range(PRE_AUTHORS)]
+        + [[f"af{j}", f"institute {j}", "affiliation"]
+           for j in range(PRE_AFFILS)]), header=False)
+
+
+def phase_preprocess_oag(dev, workdir):
+    """``run preprocess_oag`` on synthetic TSVs (:func:`write_oag_tsvs`),
+    the graph's node and edge counts by type, then ``run paper_field
+    --data <output_dir>`` for 2 steps on the card at the preset's full
+    width with the slice's flags, launches asserted."""
+    t_phase = time.perf_counter()
+    raw, out = workdir / "oag_raw", workdir / "oag_pre"
+    t0 = time.perf_counter()
+    write_oag_tsvs(raw)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc, lines, _ = run_main(["preprocess_oag", "--input_dir", str(raw),
+                             "--output_dir", str(out), "--domain", "_CS"])
+    pre_s = time.perf_counter() - t0
+    g = run_cli.load_graph(str(out))
+    edges = {"/".join(m): a.nnz for m, a in g.adj.items()}
+    ok = (rc == 0 and g.num_nodes["paper"] >= PRE_MIN_PAPERS
+          and any(m[2] == "PF_in_L2" for m in g.adj))
+    log(f"[preprocess-oag] TSVs of {PRE_PAPERS} papers written in "
+        f"{write_s:.1f} s; run preprocess_oag (host, stub title embeddings) "
+        f"exit {rc} in {pre_s:.1f} s; nodes by type {g.num_nodes}; edges by "
+        f"relation {edges} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[preprocess-oag] the graph was not built")
+    cfg = oag_config("paper_field", workdir).replace(
+        n_epoch=1, n_batch=1, model_dir=str(workdir / "pre_field"))
+    argv = ["paper_field", "--data", str(out), "--device", dev.type,
+            "--model_dir", cfg.model_dir, "--n_epoch", "1", "--n_batch", "1",
+            "--seg_pallas", "--edge_bf16", "--softmax_pallas"]
+    t0 = time.perf_counter()
+    rc, lines, counts = run_main(argv)
+    for line in lines:
+        if line.startswith(("layout:", "epoch", "test NDCG")):
+            log(f"[preprocess-oag]   {line}")
+    ok = rc == 0 and any(l.startswith("epoch 0: loss") for l in lines)
+    log(f"[preprocess-oag] run.main({' '.join(argv[:1] + argv[3:])}) on the "
+        f"built graph exit {rc} in {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        log("\n".join(lines[-40:]))
+        raise AssertionError("[preprocess-oag] paper_field did not train")
+    oag_launches("preprocess-oag", counts, cfg, cfg.n_batch * cfg.repeat,
+                 1 + OAG_TEST_BATCHES)
+    log(f"[preprocess-oag] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_convert(workdir):
+    """A graph pickled as the reference pickles it (a ``GPT_GNN.data.Graph``
+    object, as ``tests/test_datasets.py`` builds one) read by ``run``'s
+    ``load_graph``, which falls back to the converter; then one sample."""
+    import types
+
+    class Graph:
+        pass
+
+    ref = Graph()
+    ref.node_forward = {"paper": {f"p{i}": i for i in range(4)},
+                        "venue": {"v0": 0}}
+    ref.node_bacward = {
+        "paper": [{"id": f"p{i}", "type": "paper"} for i in range(4)],
+        "venue": [{"id": "v0", "type": "venue"}]}
+    ref.edge_list = {
+        "venue": {"paper": {"PV_in": {0: {0: 2010, 1: 2011}}}},
+        "paper": {"venue": {"rev_PV_in": {0: {0: 2010}, 1: {0: 2011}}}}}
+    ref.times = {2010: True, 2011: True}
+    ref.node_feature = {"paper": {"emb": np.ones((4, 3), np.float32)},
+                        "venue": {"emb": np.zeros((1, 3), np.float32)}}
+    Graph.__module__, Graph.__qualname__ = "GPT_GNN.data", "Graph"
+    mods = {"GPT_GNN": types.ModuleType("GPT_GNN"),
+            "GPT_GNN.data": types.ModuleType("GPT_GNN.data")}
+    mods["GPT_GNN.data"].Graph = Graph
+    path = workdir / "reference_graph.pk"
+    sys.modules.update(mods)
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(ref, f)
+    finally:
+        for name in mods:
+            del sys.modules[name]
+    g = run_cli.load_graph(str(path))
+    raw = HGSampler(g, depth=2, width=4).sample_raw(
+        {"paper": np.array([[0, 2010], [1, 2011]])})
+    sampled = {t: len(v) for t, v in raw.node_ids.items()}
+    ok = (isinstance(g, CSRGraph) and g.num_nodes == {"paper": 4, "venue": 1}
+          and g.adj[("venue", "paper", "PV_in")].nnz == 2
+          and sampled.get("venue", 0) == 1)
+    log(f"[convert] a reference pickle through run.load_graph: {g}; one "
+        f"sample of 2 papers: nodes {sampled} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[convert] the reference pickle did not convert")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2698,11 +3142,21 @@ def main():
         link_counts, best = phase_oag_link(dev, oag, workdir)
         index_counts, link_serve_counts = phase_link_serve(dev, oag, best,
                                                            workdir)
+        # the other convs and the segment edge path; DenseHGT's launches
+        # (the sorted path's kernels) counted on the OAG and ogbn-mag paths
+        convs_counts = phase_convs(dev, oag, workdir)
+        phase_segment(dev, oag, workdir)
+        dense_ogbn_counts = phase_dense_hgt_ogbn(dev, pred.task.graph,
+                                                 workdir)
+        dense_counts = {k: convs_counts[k] + dense_ogbn_counts[k]
+                        for k in NO_LAUNCH}
+        pre_counts = phase_preprocess_oag(dev, workdir)
+        phase_convert(workdir)
         # the OAG path's launches: every run above, each counted from 0
         # just before it ran
         oag_counts = {k: sum(c[k] for c in (
             field_counts, venue_counts, link_counts, index_counts,
-            link_serve_counts)) for k in NO_LAUNCH}
+            link_serve_counts, pre_counts)) for k in NO_LAUNCH}
 
     # launches: the serving path's and the training path's, each counted
     # from 0 just before the path ran
@@ -2711,9 +3165,11 @@ def main():
     single["launches_predictor"] = predictor_counts["live_partials"]
     single["launches_ogbn"] = ogbn_counts["live_partials"]
     single["launches_oag"] = oag_counts["live_partials"]
+    single["launches_dense_hgt"] = dense_counts["live_partials"]
     single["launches"] = (single["launches_serve"] + single["launches_train"]
                           + single["launches_predictor"]
-                          + single["launches_ogbn"] + single["launches_oag"])
+                          + single["launches_ogbn"] + single["launches_oag"]
+                          + single["launches_dense_hgt"])
     single.update(oag_kernels["live_partials"])
     single.update(ogbn_kernels["live_partials"])
     single.update({f"hard_{k}": v for k, v in hard["live_partials"].items()})
@@ -2723,8 +3179,9 @@ def main():
         rec["launches_train"] = train_counts[f"pair_{kind}"]
         rec["launches_ogbn"] = ogbn_counts[f"pair_{kind}"]
         rec["launches_oag"] = oag_counts[f"pair_{kind}"]
+        rec["launches_dense_hgt"] = dense_counts[f"pair_{kind}"]
         rec["launches"] = (rec["launches_train"] + rec["launches_ogbn"]
-                           + rec["launches_oag"])
+                           + rec["launches_oag"] + rec["launches_dense_hgt"])
         rec.update(oag_kernels.get(f"pair_{kind}", {}))
         rec.update(ogbn_kernels.get(f"pair_{kind}", {}))
         rec.update({f"hard_{k}": v for k, v in hard["pair"].items()})
@@ -2740,9 +3197,11 @@ def main():
                 rec["launches_predictor"] = predictor_counts[counter]
                 rec["launches_ogbn"] = ogbn_counts[counter]
                 rec["launches_oag"] = oag_counts[counter]
+                rec["launches_dense_hgt"] = dense_counts[counter]
                 rec["launches"] += (rec["launches_predictor"]
                                     + rec["launches_ogbn"]
-                                    + rec["launches_oag"])
+                                    + rec["launches_oag"]
+                                    + rec["launches_dense_hgt"])
                 rec.update(oag_kernels["softmax"])
                 rec.update(ogbn_kernels["softmax"])
             elif counter.startswith("slab_"):

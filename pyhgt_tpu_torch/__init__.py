@@ -5,10 +5,12 @@ The JAX package stays the reference; this package mirrors its module paths
 and imports nothing of it, nor of JAX. What is ported so far is the HGT
 model on the scatter-free sorted-edge path (its forward and its training
 step, with the segment sums of both as hand-written Hopper kernels,
-:mod:`pyhgt_tpu_torch.ops.pallas_seg`), the HGSampling sampler and the
-host sort, and on one device the ogbn-mag, paper-field / paper-venue and
-author-disambiguation runners, their evaluation, and node and link
-serving (:mod:`pyhgt_tpu_torch.run`).
+:mod:`pyhgt_tpu_torch.ops.pallas_seg`) and on the segment path, every
+other conv of the JAX package (DenseHGT, GCN, GAT, RGCN, HAN, HetGNN),
+the HGSampling sampler and the host sort, OAG preprocessing and the
+reference-pickle converter, and on one device the ogbn-mag, paper-field /
+paper-venue and author-disambiguation runners, their evaluation, and node
+and link serving (:mod:`pyhgt_tpu_torch.run`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).

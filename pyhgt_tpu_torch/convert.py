@@ -11,10 +11,18 @@ params) is a nested dict; as numpy arrays it reads::
         "clf": {"Dense_0": {"kernel": [n_hid, n_out], "bias": [n_out]}}}}
 
 A JAX ``LinkMatcherModel`` has ``"matcher": {"left_linear": {kernel,
-bias}, "right_linear": {kernel, bias}}`` in place of ``clf``. The port
-keeps every HGT leaf under the same name and shape; only a flax ``Dense``
-kernel ``[in, out]`` becomes the torch ``Linear`` weight ``[out, in]``
-(``clf.linear``, ``matcher.left_linear``, ``matcher.right_linear``). The map is about names and shapes, not about what the
+bias}, "right_linear": {kernel, bias}}`` in place of ``clf``. The other
+convs' ``base_conv`` trees: ``DenseHGTConv`` the HGT leaves but ``skip``,
+plus ``mid`` / ``out`` (``{kernel, bias}``) and ``ffn_ln`` (``{scale,
+bias}``); ``GCNConv`` ``Dense_0``; ``GATConv`` ``Dense_0`` (no bias),
+``a_src``, ``a_tgt``; ``RGCNConv`` ``w_rel``, ``b``; ``HANConv``
+``Dense_0`` (no bias), ``Dense_1``, ``a_src``, ``a_tgt``, ``sem_q``;
+``HetGNNConv`` ``Dense_0``, ``a``. The port keeps every leaf under the
+same name and shape (a conv's submodule under the flax name, so
+``gnn.convs.<i>.mid.weight``); only a flax ``Dense`` kernel ``[in, out]``
+becomes the torch ``Linear`` weight ``[out, in]`` (``clf.linear``,
+``matcher.left_linear``, ``matcher.right_linear`` and a conv's ``Dense``
+submodules). The map is about names and shapes, not about what the
 leaves mean: it carries a tree of gradients or of updated parameters the
 same way (:func:`flax_to_state_dict`), and :func:`named_to_flax` brings the
 port's named tensors (``named_parameters()``, or their ``.grad``) back into
@@ -53,7 +61,14 @@ def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
         if name.startswith("convs_"):
             i = int(name[len("convs_"):])
             for k, v in leaf["base_conv"].items():
-                put(f"gnn.convs.{i}.{k}", v)
+                if not isinstance(v, Mapping):
+                    put(f"gnn.convs.{i}.{k}", v)
+                    continue
+                for sk, sv in v.items():  # a submodule: Dense or LayerNorm
+                    if sk == "kernel":
+                        put(f"gnn.convs.{i}.{k}.weight", np.asarray(sv).T)
+                    else:
+                        put(f"gnn.convs.{i}.{k}.{sk}", sv)
         else:
             put(f"gnn.{name}", leaf)
     for key, (head, layer) in _DENSE.items():
@@ -76,7 +91,13 @@ def named_to_flax(named: Mapping[str, torch.Tensor]) -> Dict:
         linear, _, leaf = key.rpartition(".")
         if parts[:2] == ["gnn", "convs"]:
             conv = gnn.setdefault(f"convs_{parts[2]}", {"base_conv": {}})
-            conv["base_conv"][parts[3]] = arr
+            base = conv["base_conv"]
+            if len(parts) == 4:
+                base[parts[3]] = arr
+            elif leaf == "weight":  # a Linear: the flax Dense kernel
+                base.setdefault(parts[3], {})["kernel"] = arr.T
+            else:
+                base.setdefault(parts[3], {})[leaf] = arr
         elif parts[0] == "gnn":
             gnn[parts[1]] = arr
         elif linear in _DENSE and leaf in ("weight", "bias"):

@@ -155,13 +155,11 @@ def make_layout(
 
 
 def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
-    """:class:`~pyhgt_tpu_torch.models.model.GNN`'s arguments. The JAX
-    package's ``remat``, ``edge_impl``, ``graph_axis`` and ``gp_overlap``
-    have no counterpart here (the port runs the sorted edge path on one
-    device); a conv other than HGT raises."""
-    if cfg.conv_name != "hgt":
-        raise NotImplementedError(
-            f"conv_name {cfg.conv_name!r}: only the HGT conv is ported yet")
+    """:class:`~pyhgt_tpu_torch.models.model.GNN`'s arguments: any conv of
+    the JAX package (``conv_name``) on either edge path (``edge_impl``).
+    The JAX package's ``remat``, ``graph_axis`` and ``gp_overlap`` have no
+    counterpart here (the port runs on one device); an unknown conv name
+    raises when the model is built."""
     return dict(
         in_dim=in_dim,
         n_hid=cfg.n_hid,
@@ -170,9 +168,11 @@ def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
         n_heads=cfg.n_heads,
         n_layers=cfg.n_layers,
         dropout=cfg.dropout,
+        conv_name=cfg.conv_name,
         prev_norm=cfg.prev_norm,
         last_norm=cfg.last_norm,
         use_rte=cfg.use_rte,
+        edge_impl=cfg.edge_impl,
         save_kv=cfg.save_kv,
         edge_bf16=cfg.edge_bf16,
         edge_bwd=cfg.edge_bwd,
@@ -251,16 +251,30 @@ def _probe_in_dim(task, pairs, splits) -> int:
     return _infer_in_dim(tb)
 
 
+def raw_edges(model, sub, device):
+    """The raw edge arrays ``(edge_src, edge_tgt, edge_dt, edge_mask)`` of
+    the batch ``sub`` (a ``SubgraphBatch`` or those four arrays, host
+    arrays or tensors) as tensors on ``device`` when ``model``'s GNN reads
+    them (the segment path, the baseline convs), else None: the sorted HGT
+    path reads the sorted layout alone and copies nothing more."""
+    if not model.gnn.reads_edges:
+        return None
+    if hasattr(sub, "edge_src"):
+        sub = (sub.edge_src, sub.edge_tgt, sub.edge_dt, sub.edge_mask)
+    return tuple(torch.as_tensor(a, device=device) for a in sub)
+
+
 def sorted_logprobs(forward, node_feat, node_mask, se: SortedEdges, em_dev,
-                    device) -> np.ndarray:
-    """Host log-probs of one sorted batch through ``forward`` (a
+                    device, edges=None) -> np.ndarray:
+    """Host log-probs of one batch through ``forward`` (a
     :func:`~pyhgt_tpu_torch.train.step.make_eval_step` of the model): the
-    node features and mask and ``se`` to ``device``, the forward, the
-    result back on the host."""
+    node features and mask and ``se`` to ``device``, the forward (with
+    ``edges``, the raw edge arrays of :func:`raw_edges`, for a model that
+    reads them), the result back on the host."""
     return forward(
         torch.as_tensor(node_feat, device=device),
         torch.as_tensor(node_mask, device=device),
-        se.to(device), em_dev,
+        se.to(device), em_dev, edges=edges,
     ).cpu().numpy()
 
 
@@ -481,15 +495,16 @@ def _as_dev(dev):
     return lambda a: torch.as_tensor(a, device=dev)
 
 
-def _label_step_args(dev):
+def _label_step_args(dev, model):
     """A labelled item's step arguments on ``dev`` (the node-classification
-    and ogbn-mag losses)."""
+    and ogbn-mag losses), the raw edges last for a model that reads them
+    (the loader has copied the item, so they cost no copy)."""
     t = _as_dev(dev)
 
     def step_args(item):
         sub, tb = item.tb.sub, item.tb
         return (t(sub.node_feat), t(sub.node_mask), item.se, t(tb.labels),
-                t(tb.label_mask))
+                t(tb.label_mask), raw_edges(model, sub, dev))
 
     return step_args
 
@@ -566,7 +581,7 @@ def run_node_classification(
         tb = task.sample(pairs_, split_, rng)
         se = sort_batch(tb.sub, layout, em, with_backward=False)
         logp = sorted_logprobs(fwd, tb.sub.node_feat, tb.sub.node_mask, se,
-                               em_dev, dev)
+                               em_dev, dev, raw_edges(model, tb.sub, dev))
         live = tb.label_mask
         if multi_label:
             rel = (np.asarray(tb.labels) > 0).astype(np.float64)
@@ -588,9 +603,9 @@ def run_node_classification(
         ndcg, mrr = eval_metrics(valid_pairs, splits["valid"], rng_eval)
         return dict(valid_ndcg=ndcg, valid_mrr=mrr)
 
-    history = _fit(cfg, producer, step, _label_step_args(dev), loader_kw,
-                   validate, state, start_epoch, ckpt, latest_path, dev, log,
-                   metrics)
+    history = _fit(cfg, producer, step, _label_step_args(dev, model),
+                   loader_kw, validate, state, start_epoch, ckpt, latest_path,
+                   dev, log, metrics)
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, test_pairs,
                                         splits["test"], cfg, log)
@@ -678,7 +693,8 @@ def run_author_disambiguation(
         tb = task.sample(pairs_, split_, rng)
         se = sort_batch(tb.sub, layout, em, with_backward=False)
         scores = score_fn(t(tb.sub.node_feat), t(tb.sub.node_mask),
-                          se.to(dev), em_dev, t(tb.cand_idx)).cpu().numpy()
+                          se.to(dev), em_dev, t(tb.cand_idx),
+                          edges=raw_edges(model, tb.sub, dev)).cpu().numpy()
         live = tb.query_mask
         rel = np.zeros_like(scores)
         rel[:, 0] = 1.0
@@ -698,7 +714,8 @@ def run_author_disambiguation(
     def step_args(item):
         sub, tb = item.tb.sub, item.tb
         return (t(sub.node_feat), t(sub.node_mask), item.se, t(tb.cand_idx),
-                t(tb.cand_mask), t(tb.query_mask).float())
+                t(tb.cand_mask), t(tb.query_mask).float(),
+                raw_edges(model, sub, dev))
 
     history = _fit(cfg, producer, step, step_args, loader_kw, validate,
                    state, start_epoch, ckpt, latest_path, dev, log)
@@ -777,20 +794,22 @@ def run_ogbn(
             )
             vse = sort_batch(vtb.sub, layout, em, with_backward=False)
             logp = sorted_logprobs(fwd, vtb.sub.node_feat,
-                                   vtb.sub.node_mask, vse, em_dev, dev)
+                                   vtb.sub.node_mask, vse, em_dev, dev,
+                                   raw_edges(model, vtb.sub, dev))
             accs.append(task.accuracy(logp, np.asarray(vtb.labels),
                                       np.asarray(vtb.label_mask)))
         return dict(valid_acc=float(np.mean(accs)))
 
-    history = _fit(cfg, producer, step, _label_step_args(dev), loader_kw,
-                   validate, state, start_epoch, ckpt, latest_path, dev, log,
-                   metrics)
+    history = _fit(cfg, producer, step, _label_step_args(dev, model),
+                   loader_kw, validate, state, start_epoch, ckpt, latest_path,
+                   dev, log, metrics)
 
     # final multi-sample eval (eval_ogbn_mag.py:128-179)
     def eval_forward(params, nf, es, et, dt, emk, nmk):
         se = sort_edges(es, et, dt, emk, layout, em, with_backward=False)
-        return sorted_logprobs(make_eval_step(params), nf, nmk, se, em_dev,
-                               dev)
+        return sorted_logprobs(
+            make_eval_step(params), nf, nmk, se, em_dev, dev,
+            raw_edges(params, (es, et, dt, emk), dev))
 
     vr = multi_sample_eval(
         eval_forward, state.model, task, split="test",

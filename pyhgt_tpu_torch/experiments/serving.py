@@ -41,6 +41,7 @@ from pyhgt_tpu_torch.experiments.engine import (
     make_sampler,
     make_tx,
     node_classifier,
+    raw_edges,
     sorted_logprobs,
 )
 from pyhgt_tpu_torch.graph.csr import CSRGraph
@@ -137,8 +138,9 @@ class OgbnPredictor:
         se = sort_edges(es, et, dt, emk, self.layout, self.em,
                         with_backward=False)
         t1 = time.perf_counter()
-        logp = sorted_logprobs(make_eval_step(params), nf, nmk, se,
-                               self.em_dev, self.device)
+        logp = sorted_logprobs(
+            make_eval_step(params), nf, nmk, se, self.em_dev, self.device,
+            raw_edges(params, (es, et, dt, emk), self.device))
         t2 = time.perf_counter()
         self.stats.append({"sort_ms": (t1 - t0) * 1e3,
                            "forward_ms": (t2 - t1) * 1e3,
@@ -280,7 +282,8 @@ class LinkPredictor:
         t2 = time.perf_counter()
         h = self._gnn(torch.as_tensor(sub.node_feat, device=self.device),
                       torch.as_tensor(sub.node_mask, device=self.device),
-                      se.to(self.device), self.em_dev)
+                      se.to(self.device), self.em_dev,
+                      edges=raw_edges(self.model, sub, self.device))
         _sync(self.device)
         t3 = time.perf_counter()
         self.stats.append({"sample_ms": (t1 - t0) * 1e3,

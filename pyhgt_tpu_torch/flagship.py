@@ -51,9 +51,11 @@ def flagship_schema() -> GraphSchema:
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
     """The single-device subset of the JAX package's ``FlagshipConfig``,
-    every knob under the same name; ``remat``, ``edge_impl`` (the port has
-    the sorted path only), ``param_bf16`` and the multi-chip knobs
-    (``graph_axis``, ``gp_overlap``) are not ported yet."""
+    every knob under the same name. ``edge_impl`` stays at the JAX
+    default, ``"sorted"`` (the flagship's forward reads the sorted layout
+    alone; the segment path is the GNN's, ``--edge_impl`` of the runners);
+    ``remat``, ``param_bf16`` and the multi-chip knobs (``graph_axis``,
+    ``gp_overlap``) are not ported yet."""
 
     node_cap: int
     edge_cap: int
@@ -117,7 +119,8 @@ class FlagshipModel(nn.Module):
         self.gnn = GNN(
             cfg.in_dim, cfg.n_hid, num_types, num_relations, cfg.n_heads,
             cfg.n_layers, generator=generator, dropout=cfg.dropout,
-            prev_norm=True, last_norm=True, use_rte=True,
+            conv_name="hgt", prev_norm=True, last_norm=True, use_rte=True,
+            edge_impl="sorted",
             save_kv=cfg.save_kv, edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
             softmax_tilemax=cfg.softmax_tilemax,
             softmax_pallas=cfg.softmax_pallas, edge_bwd=cfg.edge_bwd,

@@ -31,7 +31,8 @@ class NodeClassifierModel(nn.Module):
     (ogbn-mag pattern — loss/metrics then mask by split membership).
     ``gnn_kwargs`` are :class:`~pyhgt_tpu_torch.models.model.GNN`'s
     arguments (:func:`pyhgt_tpu_torch.experiments.engine.gnn_kwargs`);
-    weights are drawn from ``generator``.
+    weights are drawn from ``generator``. ``edges``, the raw edge arrays,
+    go to the GNN as its ``forward`` describes.
     """
 
     def __init__(self, gnn_kwargs: dict, n_classes: int,
@@ -46,16 +47,18 @@ class NodeClassifierModel(nn.Module):
         self.clf = Classifier(gnn_kwargs["n_hid"], n_classes,
                               generator=generator)
 
-    def forward(self, node_feat, node_mask, se, em, generator=None):
-        h = self.gnn(node_feat, node_mask, se, em, generator)
+    def forward(self, node_feat, node_mask, se, em, generator=None,
+                edges=None):
+        h = self.gnn(node_feat, node_mask, se, em, generator, edges)
         block = h[self.target_type_id]
         if self.head_mode == "seeds":
             block = block[: self.n_seed]
         return self.clf(block)
 
-    def representations(self, node_feat, node_mask, se, em, generator=None):
+    def representations(self, node_feat, node_mask, se, em, generator=None,
+                        edges=None):
         """The GNN's ``[T, C, n_hid]`` node representations."""
-        return self.gnn(node_feat, node_mask, se, em, generator)
+        return self.gnn(node_feat, node_mask, se, em, generator, edges)
 
 
 class LinkMatcherModel(nn.Module):
@@ -75,7 +78,7 @@ class LinkMatcherModel(nn.Module):
         return self.score_pairs(*args, **kwargs)
 
     def score_pairs(self, node_feat, node_mask, se, em, cand_idx,
-                    generator=None):
+                    generator=None, edges=None):
         """``[P, G]`` matcher scores: the query papers (the first
         ``n_query`` rows of the query type's block) against each row's
         candidates (``cand_idx``: rows of the flattened ``[T * C, D]``
@@ -84,7 +87,7 @@ class LinkMatcherModel(nn.Module):
         Candidates go through the *left* tower (the side the reference
         caches for million-candidate serving, ``pyHGT/model.py:27-39``),
         queries through the right."""
-        h = self.gnn(node_feat, node_mask, se, em, generator)
+        h = self.gnn(node_feat, node_mask, se, em, generator, edges)
         T, C, D = h.shape
         flat = h.reshape(T * C, D)
         q = self.matcher.right(h[self.query_type_id, : self.n_query])

@@ -1,7 +1,8 @@
 """GNN stack, the classifier head and the two-tower matcher.
 
 Counterpart of :mod:`pyhgt_tpu.models.model` (``GNN``, ``Classifier``,
-``Matcher``; reference ``pyHGT/model.py:3-80``), on the HGT conv only.
+``Matcher``; reference ``pyHGT/model.py:3-80``), with every conv of
+:func:`pyhgt_tpu_torch.models.conv.general_conv` on either edge path.
 """
 
 from __future__ import annotations
@@ -11,60 +12,70 @@ import math
 import torch
 from torch import nn
 
-from pyhgt_tpu_torch.models.conv import HGTConv, dropout, lecun_normal_
+from pyhgt_tpu_torch.models.conv import (
+    dense,
+    dropout,
+    general_conv,
+    lecun_normal_,
+)
 from pyhgt_tpu_torch.ops.hgt import typed_linear
+
+# the convs whose attention rides the sorted edge path when asked to
+SORTED_CONVS = ("hgt", "dense_hgt")
 
 
 class GNN(nn.Module):
-    """Per-type input adaptation + a stack of HGT layers
+    """Per-type input adaptation + a stack of ``general_conv`` layers
     (``model.py:54-80``). The reference's per-type ``adapt_ws`` Linear loop
-    is one batched ``[T,C,Din]×[T,Din,n_hid]`` matmul here. In training
-    mode the adapted input drops out, as every layer's update does, with
-    masks drawn from the forward's ``generator``."""
+    is one batched ``[T,C,Din]×[T,Din,n_hid]`` matmul here. ``conv_name``
+    and ``edge_impl`` default to the JAX package's ``"hgt"`` and
+    ``"segment"``. In training mode the adapted input drops out, as every
+    layer's update does, with masks drawn from the forward's
+    ``generator``.
+
+    ``forward(node_feat, node_mask, se, em, generator=None, edges=None)``:
+    ``se`` is the sorted layout, which HGT and DenseHGT read on the sorted
+    path; ``edges = (edge_src, edge_tgt, edge_dt, edge_mask)`` are the raw
+    edge arrays, which the segment path and the other convs read
+    (:attr:`reads_edges`). The JAX ``__call__`` takes both the same way; a
+    caller whose model does not read the raw arrays may leave them out, so
+    the sorted HGT path copies nothing more to the device than before."""
 
     def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
                  n_layers, *, generator: torch.Generator, dropout=0.2,
-                 prev_norm=False, last_norm=False, use_rte=True,
-                 save_kv=False, edge_bf16=False, seg_pallas=False,
-                 softmax_tilemax="", softmax_pallas=False,
-                 edge_bwd="permute"):
+                 conv_name="hgt", prev_norm=False, last_norm=False,
+                 use_rte=True, edge_impl="segment", save_kv=False,
+                 edge_bf16=False, seg_pallas=False, softmax_tilemax="",
+                 softmax_pallas=False, edge_bwd="permute"):
         super().__init__()
+        self.conv_name, self.edge_impl = conv_name, edge_impl
+        self.reads_edges = (conv_name not in SORTED_CONVS
+                            or edge_impl == "segment")
         self.adapt_w = nn.Parameter(
             lecun_normal_(torch.empty(num_types, in_dim, n_hid), generator))
         self.adapt_b = nn.Parameter(torch.zeros(num_types, n_hid))
         self.dropout = dropout
         self.convs = nn.ModuleList(
-            HGTConv(
-                n_hid, n_hid, num_types, num_relations, n_heads,
+            general_conv(
+                conv_name, n_hid, n_hid, num_types, num_relations, n_heads,
                 generator=generator, dropout=dropout,
                 use_norm=last_norm if li == n_layers - 1 else prev_norm,
-                use_rte=use_rte, save_kv=save_kv, edge_bf16=edge_bf16,
-                seg_pallas=seg_pallas,
+                use_rte=use_rte, edge_impl=edge_impl, save_kv=save_kv,
+                edge_bf16=edge_bf16, seg_pallas=seg_pallas,
                 softmax_tilemax=softmax_tilemax,
                 softmax_pallas=softmax_pallas, edge_bwd=edge_bwd,
             )
             for li in range(n_layers)
         )
 
-    def forward(self, node_feat, node_mask, se, em, generator=None):
+    def forward(self, node_feat, node_mask, se, em, generator=None,
+                edges=None):
         h = torch.tanh(typed_linear(node_feat, self.adapt_w, self.adapt_b))
         h = dropout(h, self.dropout, self.training, generator)
         h = h * node_mask[..., None]
         for conv in self.convs:
-            h = conv(h, node_mask, se, em, generator)
+            h = conv(h, node_mask, se, em, generator, edges)
         return h
-
-
-def dense(n_in, n_out, generator: torch.Generator) -> nn.Linear:
-    """A ``Linear`` initialized as flax's ``Dense`` (lecun_normal kernel,
-    zero bias)."""
-    linear = nn.Linear(n_in, n_out)
-    with torch.no_grad():
-        # flax kernel [in, out] = torch weight [out, in] transposed
-        kernel = lecun_normal_(torch.empty(n_in, n_out), generator)
-        linear.weight.copy_(kernel.T)
-        linear.bias.zero_()
-    return linear
 
 
 class Classifier(nn.Module):

@@ -19,14 +19,24 @@ Two algebraic facts move the projections off the edges:
 2. The batch layout fixes one edge block per meta-relation, so the relation
    bases apply per block at node granularity (``[B,C,H,dk]×[B,H,dk,dk]``)
    instead of per edge.
+
+What remains per edge is gather -> multiply-reduce -> segment softmax ->
+segment sum: :func:`hgt_conv_core` runs it over the flat edge arrays with
+the segment primitives of :mod:`pyhgt_tpu_torch.ops.segment` (the
+reference "segment" edge path); the scatter-free sorted path is
+:mod:`pyhgt_tpu_torch.ops.sorted_hgt`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import numpy as np
 import torch
+
+from pyhgt_tpu_torch.ops.segment import segment_softmax, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,3 +137,63 @@ def _rte_block_tables(rte_vec, w_proj, wk_rel, em: EdgeStaticMeta, H, dk):
     mats = wk_rel[em.block_rel]                          # [B, H, dk, dk]
     out = torch.einsum("blhk,bhkm->blhm", by_block, mats.float())
     return out.to(rte_vec.dtype)
+
+
+def hgt_conv_core(x, edge_src, edge_tgt, edge_dt, edge_mask,
+                  em: EdgeStaticMeta, *, wq, bq, wk, bk, wv, bv, rel_pri,
+                  rel_att, rel_msg, n_heads: int, rte_vec=None):
+    """Attention and message aggregation over the flat edge arrays (the
+    reference's ``message`` + scatter, ``pyHGT/conv.py:60-111``): ``x``
+    ``[T, C, Din]``, ``edge_src`` / ``edge_tgt`` ``[E]`` flat node indices
+    (``type * C + local``), ``edge_dt`` ``[E]`` in ``[0, RTE_MAX_LEN)``,
+    ``edge_mask`` ``[E]`` bool, ``em`` on x's device; ``rte_vec`` ``[L,
+    Din]`` (the sin table through the RTE linear) or None.
+
+    Returns ``(aggr [T, C, Dout] in x's dtype, w [E, H] f32)``: the scores
+    and the softmax are f32, scaled by ``rel_pri[edge_rel] / sqrt(dk)``.
+    The update half (gelu, the A linear, skip gate, norm) is the conv
+    module's."""
+    T, C, _ = x.shape
+    Dout = wq.shape[-1]
+    H, dk = n_heads, Dout // n_heads
+    N = T * C
+    E = edge_src.shape[0]
+
+    # node-level projections, then the relation bases per block
+    q = typed_linear(x, wq, bq).reshape(T, C, H, dk)
+    k = typed_linear(x, wk, bk).reshape(T, C, H, dk)
+    v = typed_linear(x, wv, bv).reshape(T, C, H, dk)
+    k_rel = _block_relation_transform(k, rel_att, em)   # [B, C, H, dk]
+    v_rel = _block_relation_transform(v, rel_msg, em)
+    B = k_rel.shape[0]
+    k_rel = k_rel.reshape(B * C, Dout)
+    v_rel = v_rel.reshape(B * C, Dout)
+
+    # per-edge gathers (index_select: its backward is an index_add_,
+    # :mod:`pyhgt_tpu_torch.ops.segment` says why)
+    src, tgt = edge_src.long(), edge_tgt.long()
+    # into [B*C, ...]; a masked edge's offset may go below 0 and wraps, as
+    # an indexing gather would (its row is masked out either way)
+    gidx = torch.remainder(src + em.gather_off, B * C)
+    k_e = k_rel.index_select(0, gidx)
+    v_e = v_rel.index_select(0, gidx)
+    q_e = q.reshape(N, Dout).index_select(0, tgt)
+
+    # the RTE's additive correction through the 240-row tables
+    if rte_vec is not None:
+        k_tab = _rte_block_tables(rte_vec, wk, rel_att, em, H, dk)
+        v_tab = _rte_block_tables(rte_vec, wv, rel_msg, em, H, dk)
+        L = rte_vec.shape[0]
+        tab_idx = em.edge_block * L + edge_dt.long()
+        k_e = k_e + k_tab.reshape(B * L, Dout).index_select(0, tab_idx)
+        v_e = v_e + v_tab.reshape(B * L, Dout).index_select(0, tab_idx)
+
+    # scores in f32, softmax over each target's incoming edges
+    pri = rel_pri.index_select(0, em.edge_rel)           # [E, H]
+    att = (q_e.float() * k_e.float()).reshape(E, H, dk).sum(dim=-1)
+    att = att * pri.float() / math.sqrt(dk)
+    w = segment_softmax(att, tgt, N, mask=edge_mask)     # [E, H]
+
+    msg = (w[:, :, None] * v_e.float().reshape(E, H, dk)).reshape(E, Dout)
+    aggr = segment_sum(msg, tgt, N, mask=edge_mask)      # [N, Dout]
+    return aggr.reshape(T, C, Dout).to(x.dtype), w

@@ -23,6 +23,10 @@ from ``ogbn_mag``). Ported tasks:
   PNG when matplotlib is installed;
 - ``eval_ogbn_mag --ckpt <dir>``: evaluate a checkpoint
   (:func:`~pyhgt_tpu_torch.experiments.engine.evaluate_ogbn`);
+- ``preprocess_oag --input_dir <tsv dir> --output_dir <dir>``: build the
+  OAG graph from the raw TSVs
+  (:func:`~pyhgt_tpu_torch.datasets.oag.preprocess_oag`, ``--domain``,
+  ``--citation_bar``) and write it as a ``save_dir``;
 - ``serve --ckpt <dir>``: JSON-lines requests on stdin answered on stdout
   (or HTTP with ``--http``) by an
   :class:`~pyhgt_tpu_torch.experiments.serving.OgbnPredictor`
@@ -34,10 +38,14 @@ from ``ogbn_mag``). Ported tasks:
 
 Every training run writes its best and ``latest`` checkpoints under
 ``--model_dir``; ``--plot`` writes the curves PNG when matplotlib is
-installed. ``preprocess_oag`` exits with "not ported yet". ``--device``
-(default ``cuda``) takes the place of the JAX package's ``--platform``:
-without a GPU the default raises, ``--device cpu`` runs the plain CPU
-path.
+installed. ``--conv_name`` picks the conv (hgt, dense_hgt, gcn, gat, rgcn,
+han, hetgnn) and ``--edge_impl`` its edge path (``sorted`` or
+``segment``). ``--data`` takes a ``save_dir``, a ``CSRGraph`` pickle of
+either package or a graph pickled by the reference
+(:func:`~pyhgt_tpu_torch.datasets.convert.convert_reference_pickle`).
+``--device`` (default ``cuda``) takes the place of the JAX package's
+``--platform``: without a GPU the default raises, ``--device cpu`` runs
+the plain CPU path.
 """
 
 from __future__ import annotations
@@ -70,6 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot", action="store_true",
                    help="write loss/metric curves PNG next to the "
                         "checkpoint after training (train_ogbn_mag.py:29)")
+    p.add_argument("--input_dir", default="./data/oag_raw",
+                   help="preprocess_oag: raw TSV directory "
+                        "(preprocess_OAG.py:14)")
+    p.add_argument("--output_dir", default="./data/oag_output",
+                   help="preprocess_oag: save_dir for the built CSRGraph "
+                        "(preprocess_OAG.py:16)")
+    p.add_argument("--citation_bar", type=int, default=1,
+                   help="preprocess_oag: keep papers with citations >= "
+                        "min(2020-year, 20)*bar (preprocess_OAG.py:22)")
     p.add_argument("--features", default="oag", choices=["oag", "mag"],
                    help="feature extractor for OAG tasks (oag = node_emb||"
                         "emb||log-citation concat; mag = plain emb gather)")
@@ -114,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data", dest="data_path", default=None,
                    help="CSRGraph pickle or a save_dir directory "
                         "(mmap-loaded); either may come from the JAX "
-                        "package")
+                        "package; a graph pickled by the reference is "
+                        "converted")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda, which "
                         "raises without a GPU; 'cpu' runs the plain path)")
@@ -139,10 +157,18 @@ def build_parser() -> argparse.ArgumentParser:
 def load_graph(path: str):
     """A ``save_dir`` directory (memory-mapped) or a ``CSRGraph`` pickle,
     either written by this package or by the JAX package (read through the
-    module-mapping unpickler of :mod:`pyhgt_tpu_torch.graph.csr`)."""
+    module-mapping unpickler of :mod:`pyhgt_tpu_torch.graph.csr`); any
+    other pickle is read as the reference's graph and converted
+    (:func:`~pyhgt_tpu_torch.datasets.convert.convert_reference_pickle`),
+    as the JAX package does."""
     if os.path.isdir(path):
         return CSRGraph.load_dir(path, mmap=True)
-    return CSRGraph.load(path)
+    try:
+        return CSRGraph.load(path)
+    except Exception:
+        from pyhgt_tpu_torch.datasets.convert import convert_reference_pickle
+
+        return convert_reference_pickle(path)
 
 
 def _link_metas(args) -> dict:
@@ -156,14 +182,19 @@ def _link_metas(args) -> dict:
     return out
 
 
-NOT_PORTED = ("preprocess_oag",)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.task in NOT_PORTED:
-        raise SystemExit(f"pyhgt_tpu_torch.run: {args.task} is not ported "
-                         "yet")
+    if args.task == "preprocess_oag":
+        # the reference's preprocess_OAG.py surface: raw TSVs in, the
+        # built graph out as a save_dir (memory-mapped on load)
+        from pyhgt_tpu_torch.datasets.oag import preprocess_oag
+
+        domain = args.domain if args.domain is not None else "_CS"
+        g = preprocess_oag(args.input_dir, domain=domain,
+                           citation_bar=args.citation_bar)
+        g.save_dir(args.output_dir)
+        print(f"saved CSRGraph save_dir to {args.output_dir}")
+        return 0
     if not args.data_path:
         raise SystemExit(f"--data is required for task {args.task!r}")
     if args.task in ("eval_ogbn_mag", "serve") and not args.ckpt:

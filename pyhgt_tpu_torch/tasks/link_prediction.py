@@ -208,13 +208,16 @@ def make_link_loss_fn(model, em):
     the device of ``em``.
 
     Returns ``loss(generator, node_feat, node_mask, se, cand_idx,
-    cand_mask, query_mask)``: ``model.score_pairs`` in train mode (dropout
-    masks from ``generator``), then :func:`grouped_listwise_loss`. The JAX
-    closure takes the parameters, a key and the raw edge arrays."""
+    cand_mask, query_mask, edges=None)``: ``model.score_pairs`` in train
+    mode (dropout masks from ``generator``; ``edges``, the raw edge arrays,
+    for a model that reads them), then :func:`grouped_listwise_loss`. The
+    JAX closure takes the parameters, a key and the raw edge arrays."""
 
-    def loss(generator, nf, nmk, se, cand_idx, cand_mask, query_mask):
+    def loss(generator, nf, nmk, se, cand_idx, cand_mask, query_mask,
+             edges=None):
         model.train()
-        scores = model.score_pairs(nf, nmk, se, em, cand_idx, generator)
+        scores = model.score_pairs(nf, nmk, se, em, cand_idx, generator,
+                                   edges)
         return grouped_listwise_loss(scores, cand_mask, query_mask)
 
     return loss

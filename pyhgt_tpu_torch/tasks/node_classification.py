@@ -132,16 +132,17 @@ class NodeClassificationTask:
         class index, over the live label rows.
 
         Returns ``loss(generator, node_feat, node_mask, se, labels,
-        label_mask)``: the forward in train mode, dropout masks drawn from
-        ``generator`` (the JAX closure takes the parameters, a key and the
-        raw edge arrays)."""
+        label_mask, edges=None)``: the forward in train mode, dropout
+        masks drawn from ``generator``; ``edges`` are the raw edge arrays
+        for a model that reads them (the JAX closure takes the parameters,
+        a key and the raw edge arrays)."""
         from pyhgt_tpu_torch.train.step import kl_div_loss, nll_loss
 
         multi = self.multi_label
 
-        def loss(generator, nf, nmk, se, labels, lmask):
+        def loss(generator, nf, nmk, se, labels, lmask, edges=None):
             model.train()
-            logp = model(nf, nmk, se, em, generator)
+            logp = model(nf, nmk, se, em, generator, edges)
             if multi:
                 return kl_div_loss(logp, labels, mask=lmask)
             return nll_loss(logp, labels, mask=lmask)

@@ -96,15 +96,16 @@ class OgbnNodeTask:
         model's device.
 
         Returns ``loss(generator, node_feat, node_mask, se, labels,
-        label_mask)``: the forward in train mode, dropout masks drawn from
-        ``generator``. The JAX closure takes the parameters, a key and the
-        raw edge arrays; the port's model holds its parameters and reads
-        the sorted layout ``se``."""
+        label_mask, edges=None)``: the forward in train mode, dropout
+        masks drawn from ``generator``; ``edges`` are the raw edge arrays
+        for a model that reads them (``model.gnn.reads_edges``). The JAX
+        closure takes the parameters, a key and the raw edge arrays; the
+        port's model holds its parameters."""
         from pyhgt_tpu_torch.train.step import nll_loss
 
-        def loss(generator, nf, nmk, se, labels, lmask):
+        def loss(generator, nf, nmk, se, labels, lmask, edges=None):
             model.train()
-            logp = model(nf, nmk, se, em, generator)
+            logp = model(nf, nmk, se, em, generator, edges)
             return nll_loss(logp, labels, mask=lmask)
 
         return loss

@@ -445,7 +445,8 @@ def test_cli_trains_on_the_proxy(proxy_dir, tmp_path, capsys):
     """``run paper_field`` and ``paper_venue`` on the OAG proxy with each
     task's default label relation and ``--features oag`` (529-wide input):
     an epoch, the test metrics and both checkpoints; without a GPU the
-    default device raises; ``preprocess_oag`` is not ported."""
+    default device raises; ``preprocess_oag`` reads its ``--input_dir``
+    (here one without the TSVs)."""
     from pyhgt_tpu_torch import run
 
     flags = ["--data", str(proxy_dir), "--model_dir", str(tmp_path),
@@ -463,8 +464,8 @@ def test_cli_trains_on_the_proxy(proxy_dir, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run.main(["paper_venue", "--data", str(proxy_dir)])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        run.main(["preprocess_oag", "--data", str(proxy_dir)])
+    with pytest.raises(FileNotFoundError, match="PR_CS_20190919.tsv"):
+        run.main(["preprocess_oag", "--input_dir", str(proxy_dir)])
 
 
 @pytest.mark.cuda

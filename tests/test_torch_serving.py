@@ -306,7 +306,7 @@ def test_predictor_stats_stay_bounded(port_env, monkeypatch):
     monkeypatch.setattr(serving, "STATS_KEEP", keep)
     monkeypatch.setattr(
         serving, "sorted_logprobs",
-        lambda fwd, nf, nmk, se, em, dev: np.zeros(
+        lambda fwd, nf, nmk, se, em, dev, edges=None: np.zeros(
             (pred.layout.node_cap, pred.n_classes), np.float32))
     pred.stats.clear()
     for i in range(1, 4):
@@ -343,8 +343,9 @@ def test_serve_http(port_env):
 
 
 def test_run_serve_cli(port_env, tmp_path, monkeypatch):
-    """``run.main(["serve", ...])`` answers JSON-lines on stdout; a task not
-    ported exits "not ported yet"; without ``--device`` and without a GPU
+    """``run.main(["serve", ...])`` answers JSON-lines on stdout;
+    ``preprocess_oag`` reads its ``--input_dir`` (here one without the
+    TSVs); without ``--device`` and without a GPU
     ``serve``, ``paper_field`` and ``serve --serve_task link`` raise instead
     of running on the CPU."""
     from pyhgt_tpu_torch import run
@@ -365,8 +366,8 @@ def test_run_serve_cli(port_env, tmp_path, monkeypatch):
     got = [json.loads(x) for x in out.getvalue().splitlines()]
     assert [len(x["pred"]) for x in got] == [2, 1]
     assert all(0 <= p < 4 for x in got for p in x["pred"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        run.main(["preprocess_oag", "--data", str(tmp_path / "graph")])
+    with pytest.raises(FileNotFoundError, match="PR_CS_20190919.tsv"):
+        run.main(["preprocess_oag", "--input_dir", str(tmp_path / "graph")])
     if not torch.cuda.is_available():
         for task in (argv, ["paper_field", "--data", str(tmp_path / "graph")],
                      ["serve", "--serve_task", "link", "--ckpt", path,
