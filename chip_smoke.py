@@ -126,7 +126,30 @@ presets, and checks every hand-written kernel on them:
    venues, pretrained vectors, names) through ``run preprocess_oag``, then
    ``run paper_field`` on the built graph for 2 steps at full width;
 18. ``[convert]``: a graph pickled as the reference pickles it, read by
-   ``run``'s ``load_graph`` through the converter and sampled once.
+   ``run``'s ``load_graph`` through the converter and sampled once;
+19. ``[gp-kernels]``: the bench batch sorted as a gp run sorts it and cut
+   into 2 shards (113,280 edges, 295 tiles each, the preset's caps per
+   shard): ``live_partials`` on each shard's target aux and
+   ``live_partials_pair`` on its src runs aux and on the tab aux its step
+   reads (the runs aux: its tiles span more than two meta blocks) against
+   their plain versions, bf16 and f32, and timed beside each shard's
+   bound; ``[gp-window]`` the pair on a gp shard's tab-window aux, from an
+   ``[ogbn]`` path item cut in 2;
+20. ``[gp]``, ``[dp]``, ``[pp]``: one 2-rank gloo world on cuda:0, spawned
+   once, at the bench preset's full width (dropout 0, TF32 off): gp = 2 on
+   the seed-0 batch, dp = 2 on seeds 0 and 1, pp = 2 on seeds 0-3
+   (``pp_micro`` 4); each rank's loss and every gradient it holds against
+   the single-process step on the card (same inputs and weights), the
+   parameters after one update equal on both ranks, the launches per rank
+   of a step asserted, the per-rank step and peak memory beside the single
+   process's, and the gloo all-reduces of one gp layer timed;
+21. ``[gp-run]``: ``torchrun --nproc_per_node 2 -m pyhgt_tpu_torch.run
+   ogbn_mag --gp 2 --dist_backend gloo`` with the slice's flags on the
+   ogbn-mag proxy (1 epoch of 2 x 2 steps, the test split at ``vr_num``
+   1), then ``run serve`` of rank 0's checkpoint answering 2 requests;
+   ``[pp-run]``: ``run paper_field --pp 2`` (4 microbatches a step) and
+   ``[dp-gp-run]``: ``run paper_field --dp 2 --gp 2`` (4 ranks) on the OAG
+   proxy (1 epoch of 2 steps); every rank's launches asserted.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -174,6 +197,7 @@ from pyhgt_tpu_torch.experiments.engine import (
 from pyhgt_tpu_torch.experiments.serving import (
     LinkPredictor, OgbnPredictor, serve_jsonl, serve_link_jsonl,
 )
+from pyhgt_tpu_torch.flagship import PRESETS as PRESETS_FL
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
 from pyhgt_tpu_torch.graph.csr import CSRGraph
 from pyhgt_tpu_torch.models.model import SORTED_CONVS
@@ -3072,6 +3096,538 @@ def phase_convert(workdir):
         raise AssertionError("[convert] the reference pickle did not convert")
 
 
+# ------------------------------------------------------- the parallel modes
+# [gp-kernels], [gp] / [dp] / [pp], [gp-run], [pp-run], [dp-gp-run]
+GP = 2
+PP_MICRO = 4
+# a mode's step against the single-process step on the card, same inputs
+# and weights, dropout 0, TF32 off: the loss within PAR_LOSS_TOL of its
+# value, each gradient within PAR_GRAD_TOL of its tensor's max |ref|. dp
+# and pp reorder f32 sums only; gp also sums each shard's partials in f32
+# across ranks, so a bf16 rounding of a downstream per-edge tensor can flip
+PAR_LOSS_TOL = 1e-3
+PAR_GRAD_TOL = 2e-2
+# the seeds of the bench batches each mode's step trains on
+PAR_SEEDS = {"gp": (0,), "dp": (0, 1), "pp": tuple(range(PP_MICRO))}
+PAR_TIMED_STEPS = 3
+# the parallel runs: (runner argv, cuts, ranks)
+GP_RUN_CUTS = ["--n_epoch", "1", "--n_batch", "2", "--vr_num", "1"]
+OAG_PAR_CUTS = ["--n_epoch", "1", "--n_batch", "2", "--repeat", "1"]
+SLICE_FLAGS = ["--seg_pallas", "--edge_bf16", "--softmax_pallas"]
+
+
+def gp_shard_aux(fl, batch):
+    """The bench batch sorted as a gp run sorts it (no caps) and cut into
+    GP shards with the preset's caps applied per shard."""
+    from pyhgt_tpu_torch.parallel.edge_partition import partition_sorted
+
+    se = sort_batch(batch, fl.layout, fl.em)
+    lay, cfg = fl.layout, fl.cfg
+    return partition_sorted(
+        se, GP, num_blocks=len(lay.blocks), node_cap=lay.node_cap,
+        num_nodes_flat=lay.num_types * lay.node_cap,
+        tgt_rank_cap=cfg.seg_rank_cap, tab_cap=cfg.tab_cap)
+
+
+def phase_gp_kernels(fl, dev, batch):
+    """``live_partials`` (target aux) and ``live_partials_pair`` (src runs
+    aux; the tab grouping's aux the gp step reads: the tab-window aux, or
+    where a shard's tile spans more than two meta blocks, the tab runs aux)
+    against their plain versions on each gp shard's aux of the bench batch,
+    bf16 and f32; each timed in bf16 beside the shard's bound. Returns the
+    shard keys of each kernel record and whether every shard has the
+    window aux."""
+    t0 = time.perf_counter()
+    pe = gp_shard_aux(fl, batch)
+    D = fl.cfg.n_hid
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"live_partials": {}, "pair_runs": {}, "pair_window": {}}
+    windows = all(sh.ptab_src is not None for sh in pe.shards)
+    for i, sh in enumerate(pe.shards):
+        E = sh.edge_tgt.shape[0]
+        tiles = sh.pseg_tgt.loc.shape[0]
+        tab = sh.ptab_src if windows else sh.pseg_tab
+        tab_kind = "pair_window" if windows else "pair_runs"
+        auxes = {"live_partials": ("", sh.pseg_tgt),
+                 "pair src runs": ("src_", sh.pseg_src),
+                 f"pair tab {'window' if windows else 'runs'}":
+                     ("tab_", tab)}
+        records = {"live_partials": "live_partials",
+                   "pair src runs": "pair_runs",
+                   f"pair tab {'window' if windows else 'runs'}": tab_kind}
+        log(f"[gp-kernels] shard {i}: {E} edges ({tiles} tiles of K = "
+            f"{sh.pseg_tgt.loc.shape[1]}), {int(sh.edge_mask.sum())} valid; "
+            f"target aux W = {sh.pseg_tgt.w} V = {sh.pseg_tgt.v}, src runs "
+            f"W = {sh.pseg_src.w}, tab window "
+            + ("none (a tile spans more than two meta blocks: the step "
+               "reduces the tab grouping on its runs aux)"
+               if sh.ptab_src is None else f"W = V = {sh.ptab_src.w}")
+            + f", tab compacted {sh.tab_sel is not None}")
+        if (E, tiles) != (113_280, 295):
+            raise AssertionError("[gp-kernels] the bench batch's shard is not "
+                                 "295 tiles")
+        d1 = torch.randn(E, D, generator=gen, device=dev)
+        d2 = torch.randn(E, D, generator=gen, device=dev)
+        for name, (prefix, aux) in auxes.items():
+            gaux = aux.to(dev)
+            err = 0.0
+            for dtype in (torch.bfloat16, torch.float32):
+                a, b = d1.to(dtype), d2.to(dtype)
+                if prefix == "":
+                    err = max(err, check_walk(
+                        f"gp shard {i} live_partials W={aux.w} V={aux.v} "
+                        f"{str(dtype)[6:]} {tuple(a.shape)}",
+                        lambda: live_partials(a, gaux),
+                        live_partials_plain(a, gaux),
+                        live_partials_plain(a.abs(), gaux), gaux, D))
+                else:
+                    err = max(err, check_walk(
+                        f"gp shard {i} live_partials_pair {name} W={aux.w} "
+                        f"V={aux.v} {str(dtype)[6:]} {tuple(a.shape)}",
+                        lambda: live_partials_pair(a, b, gaux),
+                        live_partials_pair_plain(a, b, gaux),
+                        live_partials_pair_plain(a.abs(), b.abs(), gaux),
+                        gaux, D))
+            a, b = d1.to(torch.bfloat16), d2.to(torch.bfloat16)
+            rows = out_rows(gaux)
+            zeros = torch.zeros(gaux.num_blocks * gaux.w, D, device=dev)
+            if prefix == "":
+                bound, nbytes = bound_ms(a, gaux)
+                t = time_walk(
+                    f"gp shard {i} live_partials bf16 {tuple(a.shape)}",
+                    "live_partials", lambda x: live_partials(x, gaux), [a],
+                    gaux, lambda x: live_partials_plain(x, gaux),
+                    lambda: torch.index_add(zeros, 0, rows, a.float()),
+                    "index_add (f32 source)", nbytes, bound)
+            else:
+                bound, nbytes = bound_ms(a, gaux, n_tensors=2)
+                fa, fb = a.float(), b.float()
+                t = time_walk(
+                    f"gp shard {i} live_partials_pair {name} bf16 2 x "
+                    f"{tuple(a.shape)}", "live_partials_pair",
+                    lambda x, y: live_partials_pair(x, y, gaux), [a, b],
+                    gaux, lambda x, y: live_partials_pair_plain(x, y, gaux),
+                    lambda: (torch.index_add(zeros, 0, rows, fa),
+                             torch.index_add(zeros, 0, rows, fb)),
+                    "two index_add (f32 sources)", nbytes, bound)
+            rec = out[records[name]]
+            key = f"gp_shard_{prefix}max_abs_err"
+            rec[key] = max(rec.get(key, 0.0), err)
+            for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                      "bound_ms"):
+                rec.setdefault(f"gp_shard_{prefix}{k}", []).append(t[k])
+    log(f"[gp-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    return out, windows
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else float("nan"))
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def phase_gp_window_kernel(dev, graph):
+    """``live_partials_pair`` on a gp shard's tab-window aux, bf16 and f32,
+    against its plain version: the bench batch's shards have none, so the
+    shards of ``[ogbn]`` path items cut as ``run ogbn_mag --gp 2`` cuts
+    them (its producer, the first of seeds 12-15 whose item gives a shard
+    one). Returns the record keys."""
+    cfg = served_config()
+    sampler = make_sampler(cfg, graph, log=lambda msg: None)
+    crng = np.random.default_rng(cfg.seed + 7)
+    years = np.asarray(graph.aux["years"]).reshape(-1)
+
+    def cal_seeds():
+        pick = crng.choice(len(years), min(cfg.batch_size, len(years)),
+                           replace=False)
+        return {"paper": np.stack([pick, years[pick]], axis=1)}
+
+    layout = make_layout(cfg, graph, sampler=sampler, seeds_fn=cal_seeds)
+    em = EdgeStaticMeta.from_layout(layout)
+    task = OgbnNodeTask(graph=graph, sampler=sampler, layout=layout,
+                        batch_size=cfg.batch_size)
+    producer = _make_producer(task.make_sample_fn("train"), layout, em, gp=GP)
+    for seed in range(12, 16):
+        shards = producer(np.random.default_rng(seed)).se.shards
+        have = [i for i, sh in enumerate(shards) if sh.ptab_src is not None]
+        log(f"[gp-window] item of seed {seed} cut in {GP}: tab-window aux on "
+            f"shards {have} of {list(range(len(shards)))}")
+        if have:
+            break
+    else:
+        raise AssertionError("[gp-window] no gp shard with a tab-window aux")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = 0.0
+    for i in have:
+        aux = shards[i].ptab_src
+        gaux = aux.to(dev)
+        E = aux.loc.size
+        d1 = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
+        d2 = torch.randn(E, cfg.n_hid, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = d1.to(dtype), d2.to(dtype)
+            err = max(err, check_walk(
+                f"gp shard {i} live_partials_pair tab window W={aux.w} "
+                f"V={aux.v} {str(dtype)[6:]} {tuple(a.shape)}",
+                lambda: live_partials_pair(a, b, gaux),
+                live_partials_pair_plain(a, b, gaux),
+                live_partials_pair_plain(a.abs(), b.abs(), gaux), gaux,
+                cfg.n_hid))
+    return {"gp_shard_window_max_abs_err": err}
+
+
+def par_reference(dev, path, preset="bench"):
+    """The single-process step on the card for every seed a mode trains on
+    (bench preset, dropout 0): loss and gradients per seed, saved to
+    ``path`` for the ranks; and the single-process step's time and peak
+    memory on the seed-0 batch."""
+    fl = build_flagship(preset, device=dev, seed=0, dropout=0.0)
+    per = {}
+    for seed in sorted({s for v in PAR_SEEDS.values() for s in v}):
+        batch, labels = synth_flagship_batch(fl, seed=seed)
+        fl.model.zero_grad(set_to_none=True)
+        loss = fl.loss(batch, fl.sort(batch), labels)
+        loss.backward()
+        per[seed] = (loss.item(), {n: p.grad.detach().cpu()
+                                   for n, p in fl.model.named_parameters()})
+    torch.save(per, path)
+    batch, labels = synth_flagship_batch(fl, seed=0)
+    args = fl.to_device(batch, fl.sort(batch), labels)
+    _, step = make_flagship_trainer(fl)
+    float(step(*args))
+    _sync(dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED_STEPS):
+        float(step(*args))
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+    peak = _peak_gib(dev)
+    del fl, step, args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ms, peak
+
+
+def _par_mode(rank, mode, ref, dev, preset):
+    """One mode on this rank: a step's loss, gradients and launches against
+    the single-process reference, the parameters after the update equal on
+    both ranks, then the step timed, and the peak memory."""
+    import torch.distributed as dist
+
+    from pyhgt_tpu_torch.bench import parallel_trainer
+    from pyhgt_tpu_torch.parallel.spmd import make_step
+
+    over = {"graph_axis": "graph"} if mode == "gp" else {}
+    fl = build_flagship(preset, device=dev, seed=0, dropout=0.0, **over)
+    vg, opt, args, n_edges = parallel_trainer(fl, mode, GP, PP_MICRO)
+    names = {id(p): n for n, p in fl.model.named_parameters()}
+    trained = [(names[id(p)], p) for p in opt.params]
+    seeds = PAR_SEEDS[mode]
+    want_loss = float(np.mean([ref[s][0] for s in seeds]))
+    _sync(dev)
+    _reset_peak(dev)
+    reset_counts()
+    opt.zero_grad()
+    loss = float(vg(*args))
+    _sync(dev)
+    counts = read_counts()
+    grad_err = 0.0
+    for name, p in trained:
+        want = sum(ref[s][1][name] for s in seeds) / len(seeds)
+        err = float((p.grad.detach().float().cpu() - want).abs().max())
+        grad_err = max(grad_err, err / max(float(want.abs().max()), 1e-12))
+    opt.step()
+    # the parameters after the update: equal on both ranks (under pp the
+    # shared ones; each stage's layers are its own)
+    shared = [p for n, p in trained
+              if mode != "pp" or not n.startswith("gnn.convs.")]
+    flat = torch.cat([p.detach().reshape(-1).float() for p in shared])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    same = bool(torch.equal(hi, lo))
+    step = make_step(vg, opt)
+    float(step(*args))
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED_STEPS):
+        float(step(*args))
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+    peak = _peak_gib(dev)
+    out = dict(loss=loss, want_loss=want_loss, grad_err=grad_err,
+               counts=counts, same=same, n_shared=flat.numel(), ms=ms,
+               peak=peak, n_edges=n_edges, n_trained=len(trained))
+    if mode == "gp":
+        out["allreduce_ms"] = _gp_allreduce_ms(fl, dev)
+    del fl, vg, opt, args, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gp_allreduce_ms(fl, dev):
+    """The gloo all-reduces of one gp layer at the bench preset's sizes,
+    timed alone (mean of 5, host clock after a synchronise): forward the
+    softmax max and sum over [N, H] and the aggregation [N, D]; backward the
+    Jacobian sum [N, H] and the core inputs' gradients in one flat buffer."""
+    import torch.distributed as dist
+
+    conv = fl.model.gnn.convs[0]
+    N = fl.layout.num_types * fl.layout.node_cap
+    D, H = fl.cfg.n_hid, fl.cfg.n_heads
+    inputs = N * D + sum(getattr(conv, k).numel() for k in (
+        "wq", "bq", "wk", "bk", "wv", "bv", "rel_pri", "rel_att",
+        "rel_msg")) + conv.rte_table.shape[0] * D
+    sizes = {"[N, H] x 3": (3, N * H), "[N, D] aggregation": (1, N * D),
+             "core inputs' gradients": (1, inputs)}
+    out = {}
+    for what, (n, numel) in sizes.items():
+        x = torch.randn(numel, device=dev)
+        dist.all_reduce(x)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for _ in range(n):
+                dist.all_reduce(x)
+            _sync(dev)
+        out[what] = ((time.perf_counter() - t0) * 1e3 / 5, numel * 4 * n)
+    return out
+
+
+def par_world(rank, world, ref_path, device, preset):
+    """The [gp], [dp] and [pp] checks on one rank of a 2-rank gloo world,
+    every rank on ``device`` (the card's one device)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    ref = torch.load(ref_path, weights_only=True)
+    return {mode: _par_mode(rank, mode, ref, dev, preset)
+            for mode in ("gp", "dp", "pp")}
+
+
+def par_expected(mode, n_layers=4, gp_windows=True):
+    """Launches per rank of one step: the single-device step's per layer
+    times the layers and microbatches the rank runs (under gp each rank
+    runs every layer on its shard, the pair's tab half on the runs aux
+    where a shard has no window aux; the softmax kernel is skipped
+    there)."""
+    layers = n_layers // GP if mode == "pp" else n_layers
+    micro = PP_MICRO if mode == "pp" else 1
+    per = MAIN_STEP
+    if mode == "gp" and not gp_windows:
+        per = {"live_partials": 2, "pair_runs": 2}
+    return scaled(per, layers * micro)
+
+
+def phase_parallel(dev, workdir, preset="bench", gp_windows=True):
+    """[gp], [dp], [pp]: the single-process reference on the card, then one
+    2-rank gloo world on cuda:0 (spawned once) running each mode's step at
+    the bench preset's full width. Returns launches per mode (summed over
+    the ranks) and the numbers for the log."""
+    from pyhgt_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    ref_path = workdir / "par_ref.pt"
+    single_ms, single_peak = par_reference(dev, ref_path, preset)
+    log(f"[parallel] single-process step ({preset} preset, dropout 0, TF32 off) "
+        f"{single_ms:.2f} ms, peak {single_peak:.2f} GiB | {card_line()}")
+    t1 = time.perf_counter()
+    ranks = spawn(par_world, GP, str(ref_path), str(dev), preset,
+                  backend="gloo", threads=4)
+    log(f"[parallel] one 2-rank gloo world on {dev} (backend gloo: both "
+        f"ranks share the card), spawned once: {time.perf_counter() - t1:.1f}"
+        f" s")
+    launches = {}
+    for mode in ("gp", "dp", "pp"):
+        want = par_expected(mode, PRESETS_FL[preset].n_layers, gp_windows)
+        ok = True
+        for r, res in enumerate(ranks):
+            m = res[mode]
+            rel = abs(m["loss"] - m["want_loss"]) / abs(m["want_loss"])
+            good = (rel <= PAR_LOSS_TOL and m["grad_err"] <= PAR_GRAD_TOL
+                    and m["counts"] == want and m["same"])
+            ok = ok and good
+            log(f"[{mode}] rank {r}: loss {m['loss']:.6f} (single process "
+                f"{m['want_loss']:.6f}, rel {rel:.2e}, tol {PAR_LOSS_TOL:g}); "
+                f"{m['n_trained']} gradients, max err {m['grad_err']:.2e} of "
+                f"the tensor's max |ref| (tol {PAR_GRAD_TOL:g}); launches "
+                f"{m['counts']} (expected {want}); {m['n_shared']} parameter "
+                f"values after the update equal on both ranks {m['same']}; "
+                f"step {m['ms']:.2f} ms ({PAR_TIMED_STEPS} steps, {m['n_edges']}"
+                f" valid edges a step), peak {m['peak']:.2f} GiB "
+                f"{'ok' if good else 'FAIL'}")
+        if mode == "gp":
+            for what, (ms, nbytes) in ranks[0]["gp"]["allreduce_ms"].items():
+                log(f"[gp] gloo all_reduce of {what} ({nbytes / 1e6:.1f} MB, "
+                    f"CUDA tensors through the host) {ms:.2f} ms a layer")
+        log(f"[{mode}] per-rank step against the single process's "
+            f"{single_ms:.2f} ms: two processes time-sharing one card, not a "
+            f"scaling result | {card_line()}")
+        if not ok:
+            raise AssertionError(f"[{mode}] a rank disagrees with the single "
+                                 "process")
+        launches[mode] = {k: sum(r[mode]["counts"][k] for r in ranks)
+                          for k in NO_LAUNCH}
+    ref_path.unlink()
+    log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def add_mode_launches(rec, counter, mode_counts, total=True):
+    """A kernel record's launches under each parallel mode (every rank,
+    the mode's world and its runs), added to its total."""
+    for mode, counts in mode_counts.items():
+        rec[f"launches_{mode}"] = counts[counter]
+        if total:
+            rec["launches"] += counts[counter]
+
+
+def torchrun(n, argv):
+    """``python -m pyhgt_tpu_torch.run <argv>`` under torchrun with ``n``
+    ranks; returns (exit code, stdout lines, per-rank launches, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), "-m", "pyhgt_tpu_torch.run", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    key = "kernel launches per rank "
+    per = next((json.loads(l[len(key):]) for l in lines
+                if l.startswith(key)), None)
+    if proc.returncode or per is None:
+        log("\n".join(lines[-30:]))
+        log(proc.stderr[-4000:])
+    return proc.returncode, lines, per, secs
+
+
+def run_expected(counts, L, steps, forwards, fwd=True, per_step=None):
+    """Launches of one rank of a parallel run: ``steps`` layer-steps of the
+    single-device step (``per_step``, default the OGBN step per layer; the
+    pair's split between its aux kinds read from ``counts``) and
+    ``forwards`` evaluation forwards of L layers on rank 0."""
+    per_step = per_step or OGBN_STEP
+    want = {k: per_step.get(k, 0) * steps + (OGBN_FORWARD.get(k, 0)
+                                             * forwards * L if fwd else 0)
+            for k in NO_LAUNCH}
+    want["pair_window"] = counts["pair_window"]
+    want["pair_runs"] = OGBN_PAIR * steps - counts["pair_window"]
+    return want
+
+
+def check_run(tag, rc, lines, per, secs, cfg_line, expect):
+    """Assert a torchrun run: exit 0, finite losses, and each rank's
+    launches (``expect(rank, counts)``)."""
+    for line in lines:
+        if line.startswith(("layout:", "epoch", "test", "dist:")):
+            log(f"[{tag}]   {line}")
+    epochs = [l for l in lines if l.startswith("epoch")]
+    ok = rc == 0 and per is not None and epochs and all(
+        "nan" not in l for l in epochs)
+    if ok:
+        for r, counts in enumerate(per):
+            want = expect(r, counts)
+            good = counts == want and counts["pair_runs"] > 0
+            ok = ok and good
+            log(f"[{tag}] rank {r}: launches {counts} (expected {want}) "
+                f"{'ok' if good else 'FAIL'}")
+    log(f"[{tag}] {cfg_line}: exit {rc} in {secs:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the run failed")
+    return {k: sum(c[k] for c in per) for k in NO_LAUNCH}
+
+
+def phase_gp_run(graph, workdir):
+    """``run ogbn_mag --gp 2`` under torchrun on the ogbn-mag proxy with the
+    slice's flags (1 epoch of 2 x repeat 2, the test split at vr_num 1),
+    per-rank launches asserted; then ``run serve`` of rank 0's checkpoint
+    answering 2 requests. Returns the launches of both."""
+    cfg = served_config().replace(n_epoch=1, n_batch=2, vr_num=1, gp=GP)
+    model_dir = workdir / "gp_run"
+    argv = ["ogbn_mag", "--data", str(workdir / "graph"), "--model_dir",
+            str(model_dir), "--gp", str(GP), "--dist_backend", "gloo",
+            *SLICE_FLAGS, *GP_RUN_CUTS]
+    rc, lines, per, secs = torchrun(GP, argv)
+    L = cfg.n_layers
+    steps = cfg.n_batch * cfg.repeat * cfg.n_epoch
+    n_test = int(np.asarray(graph.aux["test_mask"]).sum())
+    forwards = 4 * cfg.n_epoch + -(-n_test // cfg.batch_size) * cfg.vr_num
+    # under gp the softmax kernel is skipped in the steps; rank 0 alone
+    # validates and evaluates on the single-device forward
+    gp_step = {"live_partials": 2}
+    counts = check_run(
+        "gp-run", rc, lines, per, secs,
+        f"torchrun --nproc_per_node {GP} -m pyhgt_tpu_torch.run "
+        f"{' '.join(argv[:1] + argv[5:])} ({steps} steps, {forwards} forwards "
+        f"on rank 0)",
+        lambda r, c: run_expected(c, L, steps * L, forwards, r == 0,
+                                  gp_step))
+    best = model_dir / "ogbn_mag_hgt"
+    reqs = [{"nodes": [0, 5, 9], "vr_num": 1}, {"nodes": [123], "vr_num": 2}]
+    rc, out, served = run_main(
+        ["serve", "--data", str(workdir / "graph"), "--ckpt", str(best),
+         *SLICE_FLAGS], "".join(json.dumps(r) + "\n" for r in reqs))
+    n_fwd = sum(r["vr_num"] for r in reqs)
+    want = scaled(PREDICTOR_FORWARD, L * n_fwd)
+    answers = [json.loads(l) for l in out]
+    ok = (rc == 0 and served == want and len(answers) == 2 and all(
+        a["nodes"] == q["nodes"] and len(a["pred"]) == len(q["nodes"])
+        for a, q in zip(answers, reqs)))
+    log(f"[gp-run-serve] run serve --ckpt {best.name} (rank 0's checkpoint "
+        f"of the gp run): {len(answers)} answers, launches {served} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[gp-run-serve] the gp checkpoint did not serve")
+    return {k: counts[k] + served[k] for k in NO_LAUNCH}
+
+
+def phase_oag_parallel_run(tag, workdir, n, flags):
+    """``run paper_field`` under torchrun with ``n`` ranks and the parallel
+    ``flags`` on the OAG proxy with the slice's flags (1 epoch of 2
+    batches), per-rank launches asserted. Returns the launches summed over
+    the ranks."""
+    cfg = PRESETS["paper_field"].replace(n_epoch=1, n_batch=2, repeat=1)
+    argv = ["paper_field", "--data", str(workdir / "oag_graph"),
+            "--model_dir", str(workdir / tag), *flags, "--dist_backend",
+            "gloo", *SLICE_FLAGS, *OAG_PAR_CUTS]
+    rc, lines, per, secs = torchrun(n, argv)
+    L = cfg.n_layers
+    steps = cfg.n_batch * cfg.repeat * cfg.n_epoch
+    forwards = cfg.n_epoch + OAG_TEST_BATCHES
+    pp = "--pp" in flags
+    if pp:
+        # a stage runs its L / pp layers on each of the PP_MICRO microbatches
+        layer_steps = steps * PP_MICRO * (L // GP)
+        per_step = OGBN_STEP
+    else:
+        layer_steps = steps * L
+        per_step = {"live_partials": 2}     # gp: no softmax kernel
+    return check_run(
+        tag, rc, lines, per, secs,
+        f"torchrun --nproc_per_node {n} -m pyhgt_tpu_torch.run "
+        f"{' '.join(argv[:1] + argv[5:])} ({steps} steps"
+        f"{f' of {PP_MICRO} microbatches' if pp else ''}, {forwards} "
+        f"forwards on rank 0)",
+        lambda r, c: run_expected(c, L, layer_steps, forwards, r == 0,
+                                  per_step))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3098,6 +3654,7 @@ def main():
               phase_weighted_kernel(fl, dev, batch),
               *phase_slab_kernel(fl, dev, batch)]
     hard = phase_hard_kernels(dev)
+    gp_kernels, gp_windows = phase_gp_kernels(fl, dev, batch)
     logp0, serve_counts = phase_requests(fl, n_edges)
     phase_cpu(logp0)
     train_counts, _ = phase_train(dev, batch, labels, n_edges)
@@ -3133,6 +3690,7 @@ def main():
         ogbn_counts = phase_ogbn(dev, pred.task.graph, workdir,
                                  profile=args.profile)
         ogbn_kernels = phase_ogbn_kernels(dev, pred.task.graph)
+        gp_window = phase_gp_window_kernel(dev, pred.task.graph)
         if args.profile:
             phase_profile(fl, batch, labels, pred)
         oag = oag_graph(workdir)
@@ -3152,6 +3710,18 @@ def main():
                         for k in NO_LAUNCH}
         pre_counts = phase_preprocess_oag(dev, workdir)
         phase_convert(workdir)
+        # the parallel modes: each run counted from 0 just before it ran,
+        # on every rank
+        par = phase_parallel(dev, workdir, gp_windows=gp_windows)
+        gp_run = phase_gp_run(pred.task.graph, workdir)
+        pp_run = phase_oag_parallel_run("pp-run", workdir, GP,
+                                        ["--pp", str(GP)])
+        dp_gp_run = phase_oag_parallel_run("dp-gp-run", workdir, 2 * GP,
+                                           ["--dp", "2", "--gp", str(GP)])
+        mode_counts = {
+            "gp": {k: par["gp"][k] + gp_run[k] for k in NO_LAUNCH},
+            "dp": {k: par["dp"][k] + dp_gp_run[k] for k in NO_LAUNCH},
+            "pp": {k: par["pp"][k] + pp_run[k] for k in NO_LAUNCH}}
         # the OAG path's launches: every run above, each counted from 0
         # just before it ran
         oag_counts = {k: sum(c[k] for c in (
@@ -3170,6 +3740,8 @@ def main():
                           + single["launches_predictor"]
                           + single["launches_ogbn"] + single["launches_oag"]
                           + single["launches_dense_hgt"])
+    add_mode_launches(single, "live_partials", mode_counts)
+    single.update(gp_kernels["live_partials"])
     single.update(oag_kernels["live_partials"])
     single.update(ogbn_kernels["live_partials"])
     single.update({f"hard_{k}": v for k, v in hard["live_partials"].items()})
@@ -3182,11 +3754,16 @@ def main():
         rec["launches_dense_hgt"] = dense_counts[f"pair_{kind}"]
         rec["launches"] = (rec["launches_train"] + rec["launches_ogbn"]
                            + rec["launches_oag"] + rec["launches_dense_hgt"])
+        add_mode_launches(rec, f"pair_{kind}", mode_counts)
+        rec.update(gp_kernels[f"pair_{kind}"])
         rec.update(oag_kernels.get(f"pair_{kind}", {}))
         rec.update(ogbn_kernels.get(f"pair_{kind}", {}))
+        if kind == "window":
+            rec.update(gp_window)
         rec.update({f"hard_{k}": v for k, v in hard["pair"].items()})
     for rec in others:
         counter = rec.pop("counter")
+        add_mode_launches(rec, counter, mode_counts, total=False)
         if counter == "head_sum":
             rec["launches"] = rec["launches_standalone"] = config_counts[counter]
         else:
@@ -3208,6 +3785,7 @@ def main():
                 rec.update(oag_kernels.get(counter, {}))
                 rec.update(ogbn_kernels.get(counter, {}))
                 rec.update({f"hard_{k}": v for k, v in hard["slab"].items()})
+        rec["launches"] += sum(rec[f"launches_{m}"] for m in mode_counts)
         if not rec["launches"]:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  "path")

@@ -10,7 +10,10 @@ other conv of the JAX package (DenseHGT, GCN, GAT, RGCN, HAN, HetGNN),
 the HGSampling sampler and the host sort, OAG preprocessing and the
 reference-pickle converter, and on one device the ogbn-mag, paper-field /
 paper-venue and author-disambiguation runners, their evaluation, and node
-and link serving (:mod:`pyhgt_tpu_torch.run`).
+and link serving (:mod:`pyhgt_tpu_torch.run`), and the parallel modes of
+the runners and the bench (:mod:`pyhgt_tpu_torch.parallel`: data
+parallelism, edge-partitioned graph parallelism with the kernels on every
+shard, GPipe pipelining; one process per rank over ``torch.distributed``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).

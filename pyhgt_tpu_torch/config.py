@@ -3,10 +3,11 @@ per-task presets.
 
 A copy of :mod:`pyhgt_tpu.config` (a plain dataclass, no framework), field
 for field, so the port's CLI (:mod:`pyhgt_tpu_torch.run`) accepts the same
-flags as the JAX package's. Fields the port does not act on yet are kept:
-``dp``/``tp``/``gp``/``pp`` above 1 and ``param_bf16`` raise "not ported
-yet" where a port entry point reads them; ``remat``, ``gp_overlap`` and
-``fused_opt`` are ignored. ``conv_name`` picks any conv of the JAX package
+flags as the JAX package's. ``dp``, ``gp``, ``pp`` (``pp_micro``) and
+``gp_overlap`` run the parallel modes, one process per rank
+(:func:`pyhgt_tpu_torch.experiments.engine.make_exec`); ``tp`` above 1 and
+``param_bf16`` raise "not ported yet" where a port entry point reads them;
+``remat`` and ``fused_opt`` are ignored. ``conv_name`` picks any conv of the JAX package
 and ``edge_impl`` its edge path (``sorted``, the default here, or
 ``segment``).
 """

@@ -1,10 +1,11 @@
 """Shared experiment engine: task assembly, epoch loop, evaluation.
 
-Counterpart of the single-device path of
-:mod:`pyhgt_tpu.experiments.engine`: ``make_sampler``, ``make_layout``,
-``gnn_kwargs``, ``make_tx``, ``_infer_in_dim``, the producer-side train
-item (``_Item``, ``_make_producer``), ``make_exec`` at dp = tp = gp = pp = 1,
-``_warn_overflow``, the OAG split ``OAG_SPLITS``, ``_probe_in_dim``, the
+Counterpart of :mod:`pyhgt_tpu.experiments.engine`: ``make_sampler``,
+``make_layout``, ``gnn_kwargs``, ``make_tx``, ``_infer_in_dim``, the
+producer-side train item (``_Item``, ``_make_producer`` with its graph-axis
+partition, ``_stack_items``), ``make_exec`` with its data-parallel,
+edge-partitioned and pipelined branches (``_pp_parts``, ``_make_pp_exec``;
+tensor parallelism is not ported), ``_warn_overflow``, the OAG split ``OAG_SPLITS``, ``_probe_in_dim``, the
 three runners :func:`run_node_classification` (paper-field / paper-venue),
 :func:`run_author_disambiguation` and :func:`run_ogbn`, and the standalone
 checkpoint evaluation :func:`evaluate_ogbn`; plus ``node_classifier`` and
@@ -19,7 +20,15 @@ checkpointing; after training, the OAG tasks average NDCG/MRR over 10
 resampled test batches, ogbn-mag evaluates the test split by the
 variance-reduced protocol (``eval_ogbn_mag.py:128-179``). Sampling and the
 host sort overlap training through
-:class:`~pyhgt_tpu_torch.train.loader.PrefetchLoader`. One epoch loop
+:class:`~pyhgt_tpu_torch.train.loader.PrefetchLoader`.
+
+Under ``dp``, ``gp`` or ``pp`` above 1 each rank is one process of a
+``torch.distributed`` world (``python -m pyhgt_tpu_torch.run`` under
+``torchrun``): every rank of a graph or pipe group trains on the same
+items, which the group's first rank samples and sends; data ranks sample
+their own. Only rank 0 evaluates (the single-device forward of the
+parameters, a pipeline's gathered first), writes checkpoints and the
+metrics jsonl, and logs; the other ranks receive its scores. One epoch loop
 (:func:`_fit`, over :func:`_train_epoch`) serves the three runners, and
 :func:`link_setup` builds the link task and model for the runner and for
 serving.
@@ -45,6 +54,19 @@ from pyhgt_tpu_torch.models.composite import (
     NodeClassifierModel,
 )
 from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
+from pyhgt_tpu_torch.parallel.distributed import world
+from pyhgt_tpu_torch.parallel.edge_partition import (
+    EdgeShard,
+    partition_sorted,
+)
+from pyhgt_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    GRAPH_AXIS,
+    PIPE_AXIS,
+    make_mesh,
+)
+from pyhgt_tpu_torch.parallel import pipeline as ppl
+from pyhgt_tpu_torch.parallel.spmd import make_dp_train_step, make_gp_train_step
 from pyhgt_tpu_torch.sampling.batch import BatchLayout
 from pyhgt_tpu_torch.sampling.hgsampler import HGSampler
 from pyhgt_tpu_torch.sampling.sorted_batch import (
@@ -98,13 +120,12 @@ OAG_SPLITS = {
 
 
 def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise on a configuration the port cannot run yet (the parallel modes
+    """Raise on a configuration the port cannot run yet (tensor parallelism
     and bf16 weight banks) instead of running another one."""
-    for knob in ("dp", "tp", "gp", "pp"):
-        if getattr(cfg, knob) > 1:
-            raise NotImplementedError(
-                f"{knob} = {getattr(cfg, knob)}: the parallel modes are not "
-                "ported yet")
+    if cfg.tp > 1:
+        raise NotImplementedError(
+            f"tp = {cfg.tp}: tensor parallelism (head-sharded parameter "
+            "banks) is the next slice of the port")
     if cfg.param_bf16:
         raise NotImplementedError("param_bf16 is not ported yet")
 
@@ -156,10 +177,10 @@ def make_layout(
 
 def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
     """:class:`~pyhgt_tpu_torch.models.model.GNN`'s arguments: any conv of
-    the JAX package (``conv_name``) on either edge path (``edge_impl``).
-    The JAX package's ``remat``, ``graph_axis`` and ``gp_overlap`` have no
-    counterpart here (the port runs on one device); an unknown conv name
-    raises when the model is built."""
+    the JAX package (``conv_name``) on either edge path (``edge_impl``),
+    edge-partitioned under ``gp > 1`` (``graph_axis``, ``gp_overlap``).
+    The JAX package's ``remat`` has no counterpart here; an unknown conv
+    name raises when the model is built."""
     return dict(
         in_dim=in_dim,
         n_hid=cfg.n_hid,
@@ -179,6 +200,8 @@ def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
         seg_pallas=cfg.seg_pallas,
         softmax_pallas=cfg.softmax_pallas,
         softmax_tilemax=cfg.softmax_tilemax,
+        graph_axis=GRAPH_AXIS if cfg.gp > 1 else "",
+        gp_overlap=cfg.gp_overlap,
     )
 
 
@@ -295,18 +318,32 @@ class _Item:
     overflow: int
 
 
-def _make_producer(sample_fn, layout, em, tgt_rank_cap: int = 0,
-                   src_rank_cap: int = 0, tab_cap: int = 0,
-                   src_split_cap: int = 0):
+def _make_producer(sample_fn, layout, em, gp: int = 1,
+                   tgt_rank_cap: int = 0, src_rank_cap: int = 0,
+                   tab_cap: int = 0, src_split_cap: int = 0):
     """``fn(rng) -> _Item``: ``sample_fn(rng)``, then the host sort with
-    the backward's aux and the configured caps (the JAX package's producer
-    at gp = 1; its graph-axis partition is not ported yet)."""
+    the backward's aux and the configured caps. ``gp > 1``: the item
+    carries the batch's :class:`PartitionedEdges` (``gp`` contiguous edge
+    shards, built on the producer threads) instead of its SortedEdges; the
+    sort then skips the caps, which the partition applies per shard, and
+    the two-region src aux, which a shard does not take."""
+    gp_tab_cap = gp_rank_cap = 0
+    if gp > 1:
+        gp_tab_cap, tab_cap = tab_cap, 0
+        gp_rank_cap, tgt_rank_cap = tgt_rank_cap, 0
+        src_split_cap = 0
 
     def fn(rng):
         tb = sample_fn(rng)
         se = sort_batch(tb.sub, layout, em, tgt_rank_cap=tgt_rank_cap,
                         src_rank_cap=src_rank_cap, tab_cap=tab_cap,
                         src_split_cap=src_split_cap)
+        if gp > 1:
+            se = partition_sorted(
+                se, gp, num_blocks=len(layout.blocks),
+                node_cap=layout.node_cap,
+                num_nodes_flat=layout.num_types * layout.node_cap,
+                tgt_rank_cap=gp_rank_cap, tab_cap=gp_tab_cap)
         return _Item(
             tb, se,
             int(np.asarray(tb.sub.edge_mask).sum()),
@@ -318,17 +355,17 @@ def _make_producer(sample_fn, layout, em, tgt_rank_cap: int = 0,
 
 def _producer_for(cfg: ExperimentConfig, sample_fn, layout, em):
     """:func:`_make_producer` with ``cfg``'s aux caps."""
-    return _make_producer(sample_fn, layout, em,
+    return _make_producer(sample_fn, layout, em, gp=cfg.gp,
                           tgt_rank_cap=cfg.tgt_rank_cap,
                           src_rank_cap=cfg.src_rank_cap, tab_cap=cfg.tab_cap,
                           src_split_cap=cfg.src_split_cap)
 
 
 def _staged(producer):
-    """``producer`` whose item's SortedEdges are already in the form the
-    step reads (:meth:`SortedEdges.to` on the CPU: int32 indices, each
-    kernel aux checked), still on the worker thread; the loader moves it
-    to the device."""
+    """``producer`` whose item's SortedEdges (or each shard's) are already
+    in the form the step reads (:meth:`SortedEdges.to` on the CPU: int32
+    indices, each kernel aux checked), still on the worker thread; the
+    loader moves it to the device."""
     cpu = torch.device("cpu")
 
     def fn(rng):
@@ -338,13 +375,94 @@ def _staged(producer):
     return fn
 
 
-def make_exec(cfg: ExperimentConfig, loss_fn, tx, state):
-    """The train step for ``cfg``: the single-device branch of the JAX
-    package's ``make_exec`` (dp = tp = gp = pp = 1). Returns ``(step,
-    loader_kwargs, state, mesh)`` as it does, the last two unchanged and
-    ``None``; the parallel modes raise (:func:`check_ported`)."""
+def _stack_items(items):
+    """Collate producer items into one (the pipeline's microbatches): the
+    task batches and sorted edges as tuples, the host counts summed."""
+    return _Item(tuple(it.tb for it in items), tuple(it.se for it in items),
+                 sum(it.n_edges for it in items),
+                 sum(it.overflow for it in items))
+
+
+def _unstack_item(item):
+    return [_Item(tb, se, 0, 0) for tb, se in zip(item.tb, item.se)]
+
+
+def _pp_parts(cfg: ExperimentConfig, em, head_loss, steps_per_epoch: int):
+    """The task side of :func:`make_exec`'s pp branch: the task head's
+    loss of one microbatch, ``head_loss(model, h_out, *labels)``, the
+    ``EdgeStaticMeta`` on the device, the layer count and a rebuilder of
+    the optimizer over a stage's parameters."""
+    return dict(head_loss=head_loss, em=em, n_layers=cfg.n_layers,
+                remake_tx=lambda named: make_tx(cfg, named, steps_per_epoch))
+
+
+def _make_pp_exec(cfg: ExperimentConfig, pp_parts, state, dp: int, pp: int):
+    """The pp branch of :func:`make_exec`: GPipe over the ranks of a
+    ``pipe`` axis (times ``data``), the task head from ``pp_parts``; the
+    optimizer is rebuilt over this stage's parameters. The step takes
+    ``(generator, micro)``."""
+    ppl.check_pipeline(cfg.n_layers, pp, cfg.prev_norm, cfg.last_norm, dp=dp,
+                       tp=cfg.tp, gp=cfg.gp)
+    n_micro = max(cfg.pp_micro, 0) or 2 * pp
+    mesh = ppl.make_pipe_mesh(pp, n_data=dp)
+    loss = ppl.make_pp_task_loss(state.model, pp_parts["head_loss"], mesh,
+                                 n_micro, pp_parts["em"])
+    tx = pp_parts["remake_tx"](loss.stage.named_parameters())
+    state = TrainState(state.model, tx)
+    step = ppl.make_pp_train_step(loss, tx, mesh)
+    loader_kw = dict(stack=n_micro, collate=_stack_items,
+                     group=mesh.group(PIPE_AXIS),
+                     src=mesh.members(PIPE_AXIS)[0],
+                     seed=cfg.seed + mesh.index(DATA_AXIS))
+    return step, loader_kw, state, mesh
+
+
+def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, pp_parts=None):
+    """The train step for ``cfg``, honoring ``dp`` / ``gp`` / ``pp`` over
+    the ranks of the ``torch.distributed`` world (one process per rank):
+
+    - dp > 1: each data rank runs the unbatched loss on its own item; the
+      loss and gradients are averaged over the data group before the clip
+      and the update (:func:`~pyhgt_tpu_torch.parallel.spmd.make_dp_train_step`);
+    - gp > 1: each batch's edges split over the graph group, every rank
+      training on its shard (:mod:`pyhgt_tpu_torch.parallel.edge_partition`);
+      composes with dp;
+    - pp > 1: the conv stack staged over a pipe group, ``cfg.pp_micro``
+      (default 2 * pp) microbatches per step on the GPipe schedule
+      (:mod:`pyhgt_tpu_torch.parallel.pipeline`), with ``pp_parts`` from
+      the runner (:func:`_pp_parts`); composes with dp.
+
+    Returns ``(step, loader_kwargs, state, mesh)`` as the JAX package does:
+    the loader's feed of this rank, the state (under pp its optimizer over
+    this stage's parameters), and the :class:`~pyhgt_tpu_torch.parallel.mesh.Mesh`
+    (None on one device). ``tp > 1`` raises (:func:`check_ported`)."""
     check_ported(cfg)
-    return make_train_step(loss_fn, tx), {}, state, None
+    dp, gp, pp = max(cfg.dp, 1), max(cfg.gp, 1), max(cfg.pp, 1)
+    if dp == gp == pp == 1:
+        return make_train_step(loss_fn, tx), {}, state, None
+    if pp > 1:
+        if gp > 1:
+            raise ValueError("pp composes with dp only (pp x gp is not "
+                             "wired)")
+        if pp_parts is None:
+            raise ValueError("cfg.pp > 1 needs the task's pipeline "
+                             "decomposition (this runner does not support "
+                             "pipeline parallelism)")
+        return _make_pp_exec(cfg, pp_parts, state, dp=dp, pp=pp)
+    mesh = make_mesh(n_data=dp, n_model=1, n_graph=gp)
+    loader_kw = dict(seed=cfg.seed + mesh.index(DATA_AXIS))
+    if gp > 1:
+        step = make_gp_train_step(loss_fn, tx, mesh)
+        group = mesh.group(GRAPH_AXIS)
+        loader_kw.update(
+            group=group, src=mesh.members(GRAPH_AXIS)[0],
+            split=lambda item: [dataclasses.replace(item, se=sh)
+                                for sh in item.se.shards],
+            local=lambda item: dataclasses.replace(
+                item, se=EdgeShard(item.se, group)))
+    else:
+        step = make_dp_train_step(loss_fn, tx, mesh)
+    return step, loader_kw, state, mesh
 
 
 def _warn_overflow(log, overflow: int, edges: int, threshold: float = 0.01):
@@ -399,11 +517,13 @@ def _restore_latest(cfg: ExperimentConfig, state: TrainState, resume: bool,
 
 
 def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
-                 step_args):
+                 step_args, fold=(1, 0)):
     """One epoch's ``n_batch * repeat`` steps on the loader's items:
     ``step(gen, *step_args(item))`` with ``gen`` reseeded per step as the
-    JAX package keys its step (``epoch * 10000 + b``). The losses stay on
-    the device until the epoch's steps are queued, then are read once.
+    JAX package keys its step (``epoch * 10000 + b``), the data rank folded
+    in (``fold = (dp, data index)``: data ranks draw other dropout masks,
+    the ranks of a graph or pipe group the same). The losses stay on the
+    device until the epoch's steps are queued, then are read once.
 
     Returns ``(train_loss, edges, overflow, timing)``; ``timing`` holds
     ``step_ms`` (mean) and ``step_ms_max`` over the steps after the first
@@ -423,7 +543,7 @@ def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
             wait += time.perf_counter() - tw
             edges += item.n_edges
             overflow += item.overflow
-            gen.manual_seed(epoch * 10000 + b)
+            gen.manual_seed((epoch * 10000 + b) * fold[0] + fold[1])
             losses.append(step(gen, *step_args(item)))
             marks.append(_step_mark(dev))
         # the one read of the epoch's losses (it waits for the device)
@@ -441,26 +561,78 @@ def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
 _VALID_TEXT = {"valid_ndcg": "NDCG", "valid_mrr": "MRR", "valid_acc": "acc"}
 
 
+def _from_lead(obj, mesh):
+    """``obj`` of rank 0 on every rank (a no-op on one device)."""
+    if mesh is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _lead_log(log):
+    """``log`` on rank 0, silence on the others."""
+    return log if world()[0] == 0 else (lambda s: None)
+
+
+def _pp_step_args(step_args, mesh):
+    """A pipeline's step arguments: the microbatches of a stacked item,
+    each ``(node_feat, node_mask, se, edges, *labels)`` from the runner's
+    ``step_args`` (the raw edges last there); unchanged off a pipeline."""
+    if mesh is None or PIPE_AXIS not in mesh.axes:
+        return step_args
+
+    def args(item):
+        micro = []
+        for sub in _unstack_item(item):
+            a = step_args(sub)
+            micro.append((a[0], a[1], a[2], a[-1], *a[3:-1]))
+        return (micro,)
+
+    return args
+
+
 def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
          validate, state, start_epoch: int, ckpt, latest_path: str, dev,
-         log, metrics=None) -> list:
+         log, metrics=None, mesh=None) -> list:
     """The runners' epoch loop, from ``start_epoch`` to ``cfg.n_epoch``:
     :func:`_train_epoch` on a :class:`PrefetchLoader` over ``producer``,
     then ``validate()`` (the epoch's validation fields, a dict whose first
     value gates the best checkpoint), the best and ``latest`` checkpoints,
     the history record (also to ``metrics`` when given), the overflow
-    warning and the epoch's log line. Returns the history."""
+    warning and the epoch's log line. Returns the history.
+
+    On a ``mesh`` (the parallel modes), rank 0 alone validates and writes
+    the checkpoints, a pipeline's stages gathered on it first
+    (:func:`~pyhgt_tpu_torch.parallel.pipeline.gather_pipeline_params`),
+    and every rank gets its scores."""
     history = []
     gen = torch.Generator(device=dev)
+    lead = world()[0] == 0
+    piped = mesh is not None and PIPE_AXIS in mesh.axes
+    fold = ((mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)) if mesh is not None
+            else (1, 0))
+    step_args = _pp_step_args(step_args, mesh)
     with _loader(producer, cfg, dev, loader_kw) as loader:
         it = iter(loader)
         for epoch in range(start_epoch, cfg.n_epoch):
             t0 = time.time()
             train_loss, edges, overflow, timing = _train_epoch(
-                step, it, cfg, epoch, gen, dev, step_args)
-            valid = validate()
-            best = ckpt.update(next(iter(valid.values())), state)
-            save_checkpoint(latest_path, state)  # crash-restart point
+                step, it, cfg, epoch, gen, dev, step_args, fold)
+            if piped:
+                ppl.gather_pipeline_params(state.model, mesh)
+            valid = best = None
+            if lead:
+                saved = (ppl.ExportedState(state.model, state.step) if piped
+                         else state)
+                valid = validate()
+                best = ckpt.update(next(iter(valid.values())), saved)
+                save_checkpoint(latest_path, saved)  # crash-restart point
+            valid, best = _from_lead((valid, best), mesh)
+            if best and not lead:   # the same best score on every rank
+                ckpt.best = float(next(iter(valid.values())))
             secs = time.time() - t0
             eps = edges * cfg.n_layers / max(secs, 1e-9)
             history.append(dict(epoch=epoch, loss=train_loss, **valid,
@@ -478,6 +650,13 @@ def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
     return history
 
 
+def _metrics_logger(cfg: ExperimentConfig) -> MetricsLogger:
+    """The run's metrics jsonl; on a rank other than 0 a sink that writes
+    nothing."""
+    path = os.path.join(cfg.model_dir, f"{cfg.task_name}_metrics.jsonl")
+    return MetricsLogger(path if world()[0] == 0 else None)
+
+
 def _timing_text(timing) -> str:
     """The epoch log line's step-time and loader-wait part."""
     step = (f"step {timing['step_ms']:.1f} ms, "
@@ -487,8 +666,8 @@ def _timing_text(timing) -> str:
 
 def _loader(producer, cfg: ExperimentConfig, dev, loader_kw):
     return PrefetchLoader(_staged(producer), n_workers=cfg.n_pool,
-                          repeat=cfg.repeat, seed=cfg.seed, device=dev,
-                          **loader_kw)
+                          repeat=cfg.repeat, device=dev,
+                          **{"seed": cfg.seed, **loader_kw})
 
 
 def _as_dev(dev):
@@ -510,15 +689,18 @@ def _label_step_args(dev, model):
 
 
 def _test_metrics(eval_metrics, pairs, split, cfg: ExperimentConfig,
-                  log) -> tuple:
+                  log, mesh=None) -> tuple:
     """NDCG and MRR averaged over 10 resampled test batches
-    (``OAG/train_paper_field.py:295-327``)."""
+    (``OAG/train_paper_field.py:295-327``), on rank 0 and sent to the
+    others on a ``mesh``."""
+    if world()[0] != 0:
+        return _from_lead(None, mesh)
     rng_t = np.random.default_rng(cfg.seed + 2)
     tests = [eval_metrics(pairs, split, rng_t) for _ in range(10)]
     test_ndcg = float(np.mean([t[0] for t in tests]))
     test_mrr = float(np.mean([t[1] for t in tests]))
     log(f"test NDCG {test_ndcg:.4f} MRR {test_mrr:.4f}")
-    return test_ndcg, test_mrr
+    return _from_lead((test_ndcg, test_mrr), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -542,8 +724,11 @@ def run_node_classification(
     Per epoch the history records the JAX package's fields (``loss``,
     ``valid_ndcg``, ``valid_mrr``, ``best``, ``secs``, ``edges_per_s``,
     ``edges``, ``edges_dropped``) and the step timing of
-    :func:`_train_epoch` (``step_ms``, ``step_ms_max``, ``wait_ms``)."""
+    :func:`_train_epoch` (``step_ms``, ``step_ms_max``, ``wait_ms``).
+    ``cfg.dp`` / ``gp`` / ``pp`` above 1 run the parallel modes
+    (:func:`make_exec`) on this rank of the process group."""
     dev = resolve_device(device)
+    log = _lead_log(log)
     splits = splits or OAG_SPLITS
     sampler = make_sampler(cfg, graph, log=log)
     task = NodeClassificationTask(
@@ -573,8 +758,19 @@ def run_node_classification(
         task.n_classes, target_type, head_mode="seeds").to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    step, loader_kw, state, _ = make_exec(
-        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx))
+    pp_parts = None
+    if cfg.pp > 1:
+        from pyhgt_tpu_torch.train.step import kl_div_loss, nll_loss
+
+        def head_loss(model_, h, labels, lmask):
+            logp = model_.head(h)
+            return (kl_div_loss(logp, labels, mask=lmask) if multi_label
+                    else nll_loss(logp, labels, mask=lmask))
+
+        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    step, loader_kw, state, mesh = make_exec(
+        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx),
+        pp_parts=pp_parts)
     fwd = make_eval_step(model)
 
     def eval_metrics(pairs_, split_, rng):
@@ -594,9 +790,7 @@ def run_node_classification(
         cfg, state, resume, log)
     producer = _producer_for(
         cfg, task.make_sample_fn(train_pairs, splits["train"]), layout, em)
-    metrics = MetricsLogger(
-        os.path.join(cfg.model_dir, f"{cfg.task_name}_metrics.jsonl")
-    )
+    metrics = _metrics_logger(cfg)
     rng_eval = np.random.default_rng(cfg.seed + 1)
 
     def validate():
@@ -605,10 +799,10 @@ def run_node_classification(
 
     history = _fit(cfg, producer, step, _label_step_args(dev, model),
                    loader_kw, validate, state, start_epoch, ckpt, latest_path,
-                   dev, log, metrics)
+                   dev, log, metrics, mesh)
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, test_pairs,
-                                        splits["test"], cfg, log)
+                                        splits["test"], cfg, log, mesh)
     metrics.log("test", ndcg=test_ndcg, mrr=test_mrr)
     metrics.close()
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
@@ -670,8 +864,10 @@ def run_author_disambiguation(
     Per epoch the history records the JAX package's fields (``loss``,
     ``valid_ndcg``, ``valid_mrr``, ``best``, ``secs``, ``edges_dropped``)
     and the timing fields of :func:`run_node_classification` (``edges``,
-    ``edges_per_s``, ``step_ms``, ``step_ms_max``, ``wait_ms``)."""
+    ``edges_per_s``, ``step_ms``, ``step_ms_max``, ``wait_ms``); the
+    parallel modes as there."""
     dev = resolve_device(device)
+    log = _lead_log(log)
     splits = splits or OAG_SPLITS
     task, pairs, model = link_setup(cfg, graph, splits, first_meta,
                                     write_meta, max_group, log)
@@ -684,8 +880,20 @@ def run_author_disambiguation(
     model = model.to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    step, loader_kw, state, _ = make_exec(
-        cfg, make_link_loss_fn(model, em_dev), tx, TrainState(model, tx))
+    pp_parts = None
+    if cfg.pp > 1:
+        from pyhgt_tpu_torch.tasks.link_prediction import (
+            grouped_listwise_loss,
+        )
+
+        def head_loss(model_, h, cand_idx, cand_mask, query_mask):
+            return grouped_listwise_loss(model_.head(h, cand_idx), cand_mask,
+                                         query_mask)
+
+        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    step, loader_kw, state, mesh = make_exec(
+        cfg, make_link_loss_fn(model, em_dev), tx, TrainState(model, tx),
+        pp_parts=pp_parts)
     score_fn = make_eval_step(model)
     t = _as_dev(dev)
 
@@ -718,10 +926,11 @@ def run_author_disambiguation(
                 raw_edges(model, sub, dev))
 
     history = _fit(cfg, producer, step, step_args, loader_kw, validate,
-                   state, start_epoch, ckpt, latest_path, dev, log)
+                   state, start_epoch, ckpt, latest_path, dev, log, None,
+                   mesh)
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, pairs["test"],
-                                        splits["test"], cfg, log)
+                                        splits["test"], cfg, log, mesh)
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
                 best_valid=ckpt.best, state=state)
 
@@ -743,9 +952,11 @@ def run_ogbn(
     Per epoch the history records, beside the JAX package's fields
     (``loss``, ``valid_acc``, ``best``, ``secs``, ``edges_per_s``,
     ``edges``, ``edges_dropped``), the step timing of :func:`_train_epoch`
-    (``step_ms``, ``step_ms_max``, ``wait_ms``).
+    (``step_ms``, ``step_ms_max``, ``wait_ms``); the parallel modes as in
+    :func:`run_node_classification`, the test split evaluated on rank 0.
     """
     dev = resolve_device(device)
+    log = _lead_log(log)
     sampler = make_sampler(cfg, graph, log=log)
     _crng = np.random.default_rng(cfg.seed + 7)
     _years = np.asarray(graph.aux["years"]).reshape(-1)
@@ -769,15 +980,22 @@ def run_ogbn(
                             task.target_type).to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    step, loader_kw, state, _ = make_exec(
-        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx))
+    pp_parts = None
+    if cfg.pp > 1:
+        from pyhgt_tpu_torch.train.step import nll_loss
+
+        def head_loss(model_, h, labels, lmask):
+            return nll_loss(model_.head(h), labels, mask=lmask)
+
+        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    step, loader_kw, state, mesh = make_exec(
+        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx),
+        pp_parts=pp_parts)
     fwd = make_eval_step(model)
 
     state, start_epoch, ckpt, latest_path = _restore_latest(
         cfg, state, resume, log)
-    metrics = MetricsLogger(
-        os.path.join(cfg.model_dir, f"{cfg.task_name}_metrics.jsonl")
-    )
+    metrics = _metrics_logger(cfg)
     producer = _producer_for(cfg, task.make_sample_fn("train"), layout, em)
     rng_eval = np.random.default_rng(cfg.seed + 1)
     valid_nodes = np.where(task.masks["valid"])[0]
@@ -802,22 +1020,25 @@ def run_ogbn(
 
     history = _fit(cfg, producer, step, _label_step_args(dev, model),
                    loader_kw, validate, state, start_epoch, ckpt, latest_path,
-                   dev, log, metrics)
+                   dev, log, metrics, mesh)
 
-    # final multi-sample eval (eval_ogbn_mag.py:128-179)
+    # final multi-sample eval (eval_ogbn_mag.py:128-179), on rank 0
     def eval_forward(params, nf, es, et, dt, emk, nmk):
         se = sort_edges(es, et, dt, emk, layout, em, with_backward=False)
         return sorted_logprobs(
             make_eval_step(params), nf, nmk, se, em_dev, dev,
             raw_edges(params, (es, et, dt, emk), dev))
 
-    vr = multi_sample_eval(
-        eval_forward, state.model, task, split="test",
-        batch_size=cfg.batch_size,
-        vr_num=cfg.vr_num if eval_mode == "variance_reduce" else 1,
-        rng=np.random.default_rng(cfg.seed + 3),
-        max_nodes=max_eval_nodes,
-    )
+    vr = None
+    if world()[0] == 0:
+        vr = multi_sample_eval(
+            eval_forward, state.model, task, split="test",
+            batch_size=cfg.batch_size,
+            vr_num=cfg.vr_num if eval_mode == "variance_reduce" else 1,
+            rng=np.random.default_rng(cfg.seed + 3),
+            max_nodes=max_eval_nodes,
+        )
+    vr = _from_lead(vr, mesh)
     metrics.log("test", mode=eval_mode, **{k: v for k, v in vr.items()})
     metrics.close()
     log(f"test acc ({eval_mode}): {vr['acc']:.4f} "

@@ -50,12 +50,13 @@ def flagship_schema() -> GraphSchema:
 
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
-    """The single-device subset of the JAX package's ``FlagshipConfig``,
-    every knob under the same name. ``edge_impl`` stays at the JAX
-    default, ``"sorted"`` (the flagship's forward reads the sorted layout
-    alone; the segment path is the GNN's, ``--edge_impl`` of the runners);
-    ``remat``, ``param_bf16`` and the multi-chip knobs (``graph_axis``,
-    ``gp_overlap``) are not ported yet."""
+    """The JAX package's ``FlagshipConfig``, every knob under the same
+    name. ``edge_impl`` stays at the JAX default, ``"sorted"`` (the
+    flagship's forward reads the sorted layout alone; the segment path is
+    the GNN's, ``--edge_impl`` of the runners). ``graph_axis`` and
+    ``gp_overlap`` run the convs edge-partitioned over the ranks of a
+    process group (:meth:`Flagship.partition`, ``pe=`` of the forward);
+    ``remat`` and ``param_bf16`` are not ported."""
 
     node_cap: int
     edge_cap: int
@@ -88,6 +89,8 @@ class FlagshipConfig:
     # softmax, unguarded or with a per-batch check of the logit spread
     seg_rank_cap: int = 0      # tgt kernel aux rank cap V (0 = off; falls
     # back per batch to W = K if a tile holds more segments)
+    graph_axis: str = ""       # "graph": edge-partitioned runs (gp > 1)
+    gp_overlap: bool = False   # gp: ring all-reduce boundary exchange
 
 
 PRESETS: Dict[str, FlagshipConfig] = {
@@ -124,11 +127,15 @@ class FlagshipModel(nn.Module):
             save_kv=cfg.save_kv, edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
             softmax_tilemax=cfg.softmax_tilemax,
             softmax_pallas=cfg.softmax_pallas, edge_bwd=cfg.edge_bwd,
+            graph_axis=cfg.graph_axis, gp_overlap=cfg.gp_overlap,
         )
         self.clf = Classifier(cfg.n_hid, cfg.n_classes, generator=generator)
 
-    def forward(self, node_feat, node_mask, se, em, generator=None):
-        h = self.gnn(node_feat, node_mask, se, em, generator)
+    def forward(self, node_feat, node_mask, se, em, generator=None, pe=None):
+        return self.head(self.gnn(node_feat, node_mask, se, em, generator,
+                                  pe=pe))
+
+    def head(self, h):
         seeds = h[0, : self.cfg.n_seed]  # paper seeds come first by contract
         return self.clf(seeds)
 
@@ -154,14 +161,30 @@ class Flagship:
         """Host-side sort + aux of one batch (the C++ batch prep when its
         library builds, else numpy; the same arrays either way);
         ``with_backward=False`` leaves out what only a training step
-        reads."""
+        reads. Under ``graph_axis`` the caps are left to
+        :meth:`partition`, which applies them per shard."""
         c = self.cfg
+        gp = bool(c.graph_axis)
         return sort_batch(batch, self.layout, self.em,
                           pk=c.seg_tile or None, pw=c.seg_w or None,
-                          tgt_rank_cap=c.seg_rank_cap,
-                          src_rank_cap=c.src_rank_cap, tab_cap=c.tab_cap,
-                          src_split_cap=c.src_split_cap,
+                          tgt_rank_cap=0 if gp else c.seg_rank_cap,
+                          src_rank_cap=0 if gp else c.src_rank_cap,
+                          tab_cap=0 if gp else c.tab_cap,
+                          src_split_cap=0 if gp else c.src_split_cap,
                           with_backward=with_backward)
+
+    def partition(self, se: SortedEdges, n_parts: int):
+        """:meth:`sort`'s batch cut into ``n_parts`` contiguous shards, each
+        with its own aux and the preset's ``tab_cap`` / ``seg_rank_cap``
+        (:func:`~pyhgt_tpu_torch.parallel.edge_partition.partition_sorted`)."""
+        from pyhgt_tpu_torch.parallel.edge_partition import partition_sorted
+
+        c, lay = self.cfg, self.layout
+        return partition_sorted(
+            se, n_parts, num_blocks=len(lay.blocks), node_cap=lay.node_cap,
+            num_nodes_flat=lay.num_types * lay.node_cap,
+            pk=c.seg_tile or None, pw=c.seg_w or None,
+            tgt_rank_cap=c.seg_rank_cap, tab_cap=c.tab_cap)
 
     def to_device(self, batch: SubgraphBatch, se: SortedEdges, labels=None):
         """``(batch, se, labels)`` with what the model reads as tensors on
@@ -187,12 +210,14 @@ class Flagship:
         self.model.eval()
         return self._logp(*self.to_device(batch, se)[:2])
 
-    def loss(self, batch: SubgraphBatch, se: SortedEdges, labels):
+    def loss(self, batch: SubgraphBatch, se, labels):
         """The training loss of one batch (the JAX package's
         ``loss_fn_single``): the forward in train mode, with dropout masks
         from this flagship's seeded generator, and the NLL of the seeds'
         labels. ``batch``, ``se`` and ``labels`` may be host arrays or
-        :meth:`to_device`'s tensors."""
+        :meth:`to_device`'s tensors; ``se`` may be this rank's
+        :class:`~pyhgt_tpu_torch.parallel.edge_partition.EdgeShard` (the
+        convs then run edge-partitioned)."""
         self.model.train()
         batch, se, labels = self.to_device(batch, se, labels)
         return nll_loss(self._logp(batch, se), labels)

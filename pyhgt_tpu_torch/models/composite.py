@@ -32,7 +32,8 @@ class NodeClassifierModel(nn.Module):
     ``gnn_kwargs`` are :class:`~pyhgt_tpu_torch.models.model.GNN`'s
     arguments (:func:`pyhgt_tpu_torch.experiments.engine.gnn_kwargs`);
     weights are drawn from ``generator``. ``edges``, the raw edge arrays,
-    go to the GNN as its ``forward`` describes.
+    and ``pe``, a rank's shard of an edge-partitioned batch, go to the GNN
+    as its ``forward`` describes.
     """
 
     def __init__(self, gnn_kwargs: dict, n_classes: int,
@@ -48,17 +49,22 @@ class NodeClassifierModel(nn.Module):
                               generator=generator)
 
     def forward(self, node_feat, node_mask, se, em, generator=None,
-                edges=None):
-        h = self.gnn(node_feat, node_mask, se, em, generator, edges)
+                edges=None, pe=None):
+        return self.head(self.gnn(node_feat, node_mask, se, em, generator,
+                                  edges, pe=pe))
+
+    def head(self, h):
+        """Log-probs from the GNN's output ``h [T, C, n_hid]``."""
         block = h[self.target_type_id]
         if self.head_mode == "seeds":
             block = block[: self.n_seed]
         return self.clf(block)
 
     def representations(self, node_feat, node_mask, se, em, generator=None,
-                        edges=None):
+                        edges=None, pe=None):
         """The GNN's ``[T, C, n_hid]`` node representations."""
-        return self.gnn(node_feat, node_mask, se, em, generator, edges)
+        return self.gnn(node_feat, node_mask, se, em, generator, edges,
+                        pe=pe)
 
 
 class LinkMatcherModel(nn.Module):
@@ -78,7 +84,7 @@ class LinkMatcherModel(nn.Module):
         return self.score_pairs(*args, **kwargs)
 
     def score_pairs(self, node_feat, node_mask, se, em, cand_idx,
-                    generator=None, edges=None):
+                    generator=None, edges=None, pe=None):
         """``[P, G]`` matcher scores: the query papers (the first
         ``n_query`` rows of the query type's block) against each row's
         candidates (``cand_idx``: rows of the flattened ``[T * C, D]``
@@ -87,7 +93,11 @@ class LinkMatcherModel(nn.Module):
         Candidates go through the *left* tower (the side the reference
         caches for million-candidate serving, ``pyHGT/model.py:27-39``),
         queries through the right."""
-        h = self.gnn(node_feat, node_mask, se, em, generator, edges)
+        return self.head(self.gnn(node_feat, node_mask, se, em, generator,
+                                  edges, pe=pe), cand_idx)
+
+    def head(self, h, cand_idx):
+        """Matcher scores from the GNN's output ``h [T, C, n_hid]``."""
         T, C, D = h.shape
         flat = h.reshape(T * C, D)
         q = self.matcher.right(h[self.query_type_id, : self.n_query])

@@ -18,10 +18,14 @@ Counterpart of :mod:`pyhgt_tpu.models.conv`:
 - :func:`general_conv`, the dispatcher by name (the JAX ``GeneralConv``).
 
 Every conv's ``forward(x [T,C,Din], node_mask [T,C], se, em,
-generator=None, edges=None)`` reads the sorted layout ``se`` (a
+generator=None, edges=None, pe=None)`` reads the sorted layout ``se`` (a
 :class:`~pyhgt_tpu_torch.sampling.sorted_batch.SortedEdges`) or the raw
 edge arrays ``edges = (edge_src, edge_tgt, edge_dt, edge_mask)``, as its
-path needs; ``em`` is an :class:`~pyhgt_tpu_torch.ops.hgt.EdgeStaticMeta`
+path needs; ``pe``, this rank's
+:class:`~pyhgt_tpu_torch.parallel.edge_partition.EdgeShard` of an
+edge-partitioned batch, runs :class:`HGTConv` partitioned when it was built
+with ``graph_axis`` (every other conv raises on it, as it cannot run
+partitioned); ``em`` is an :class:`~pyhgt_tpu_torch.ops.hgt.EdgeStaticMeta`
 on x's device. Parameters are stacked banks (``[T, ...]`` per node type,
 ``[R, ...]`` per relation) under the JAX package's names and shapes; a
 flax ``Dense`` is a ``Linear`` under the flax name (``Dense_0``, ``mid``),
@@ -40,6 +44,7 @@ from pyhgt_tpu_torch.ops.hgt import hgt_conv_core, typed_linear
 from pyhgt_tpu_torch.ops.rte import rte_sin_table
 from pyhgt_tpu_torch.ops.segment import segment_softmax, segment_sum
 from pyhgt_tpu_torch.ops.sorted_hgt import hgt_conv_core_sorted
+from pyhgt_tpu_torch.parallel.edge_partition import hgt_conv_core_partitioned
 
 EDGE_IMPLS = ("segment", "sorted")
 # the convs of general_conv, in the JAX package's order
@@ -139,6 +144,12 @@ class FlaxLayerNorm(nn.Module):
             + self.bias
 
 
+def _no_partition(pe, who: str):
+    if pe is not None:
+        raise ValueError(f"{who} cannot run edge-partitioned (gp > 1): "
+                         "only the hgt conv can")
+
+
 def _edge_arrays(edges, who: str):
     """``(src, tgt, dt, mask)`` as index tensors and a bool mask; a conv
     that reads the raw edge arrays raises when it is given none."""
@@ -160,7 +171,8 @@ class _HGTAttention(nn.Module):
                  *, generator: torch.Generator, dropout, use_norm, use_rte,
                  edge_impl, save_kv, edge_bf16, seg_pallas, softmax_tilemax,
                  softmax_pallas, edge_bwd, skip_gate: bool,
-                 typed_norm: bool):
+                 typed_norm: bool, graph_axis: str = "",
+                 gp_overlap: bool = False):
         super().__init__()
         T, R, H = num_types, num_relations, n_heads
         Din, Dout = in_dim, out_dim
@@ -178,6 +190,8 @@ class _HGTAttention(nn.Module):
         self.softmax_tilemax = softmax_tilemax
         self.softmax_pallas = softmax_pallas
         self.edge_bwd = edge_bwd  # permute | recompute | src_direct | slab
+        # "graph": run edge-partitioned when a forward is given an EdgeShard
+        self.graph_axis, self.gp_overlap = graph_axis, gp_overlap
 
         def p(*shape, init):
             return _param(generator, *shape, init=init)
@@ -245,8 +259,21 @@ class _HGTAttention(nn.Module):
             return self._segment_core(x, edges, em)[1]
         return self._core(x, se, em, return_attention=True)[1]
 
-    def _aggregate(self, x, se, em, edges):
-        """``aggr [T, C, Dout]`` of the edge path ``edge_impl``."""
+    def _aggregate(self, x, se, em, edges, pe=None):
+        """``aggr [T, C, Dout]`` of the edge path ``edge_impl``, or of this
+        rank's shard ``pe`` combined over its graph group."""
+        if pe is not None:
+            if not self.graph_axis:
+                raise ValueError("an EdgeShard needs a conv built with "
+                                 "graph_axis (gp > 1)")
+            return hgt_conv_core_partitioned(
+                x, pe, em, **self._banks(), overlap=self.gp_overlap,
+                save_kv=self.save_kv,
+                edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
+                edge_bwd=self.edge_bwd, seg_pallas=self.seg_pallas,
+                softmax_pallas=self.softmax_pallas,
+                softmax_tilemax=("auto" if self.softmax_tilemax == "auto"
+                                 else bool(self.softmax_tilemax)))
         if self.edge_impl == "segment":
             return self._segment_core(x, edges, em)[0]
         if se is None:
@@ -270,17 +297,20 @@ class HGTConv(_HGTAttention):
                  *, generator: torch.Generator, dropout=0.2, use_norm=True,
                  use_rte=True, edge_impl="segment", save_kv=False,
                  edge_bf16=False, seg_pallas=False, softmax_tilemax="",
-                 softmax_pallas=False, edge_bwd="permute"):
+                 softmax_pallas=False, edge_bwd="permute", graph_axis="",
+                 gp_overlap=False):
         super().__init__(
             in_dim, out_dim, num_types, num_relations, n_heads,
             generator=generator, dropout=dropout, use_norm=use_norm,
             use_rte=use_rte, edge_impl=edge_impl, save_kv=save_kv,
             edge_bf16=edge_bf16, seg_pallas=seg_pallas,
             softmax_tilemax=softmax_tilemax, softmax_pallas=softmax_pallas,
-            edge_bwd=edge_bwd, skip_gate=True, typed_norm=use_norm)
+            edge_bwd=edge_bwd, skip_gate=True, typed_norm=use_norm,
+            graph_axis=graph_axis, gp_overlap=gp_overlap)
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
-        aggr = self._aggregate(x, se, em, edges)
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        aggr = self._aggregate(x, se, em, edges, pe)
         # update half (conv.py:114-134): exact (erf) gelu as the reference's
         # F.gelu (conv.py:119), per-type A linear, sigmoid skip gate, norm
         trans = typed_linear(F.gelu(aggr), self.wa, self.ba)
@@ -317,7 +347,10 @@ class DenseHGTConv(_HGTAttention):
         self.out = dense(out_dim * 2, out_dim, generator)
         self.ffn_ln = FlaxLayerNorm(out_dim)
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        # the JAX DenseHGTConv has no partitioned path either
+        _no_partition(pe, "DenseHGTConv")
         aggr = self._aggregate(x, se, em, edges)
         trans = typed_linear(aggr, self.wa, self.ba)
         trans = dropout(trans, self.dropout, self.training, generator)
@@ -340,7 +373,9 @@ class GCNConv(nn.Module):
         self.out_dim = out_dim
         self.Dense_0 = dense(in_dim, out_dim, generator)
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        _no_partition(pe, "GCNConv")
         src, tgt, _, mask = _edge_arrays(edges, "GCNConv")
         T, C, _ = x.shape
         N = T * C
@@ -372,7 +407,9 @@ class GATConv(nn.Module):
         self.a_src = _param(generator, n_heads, dk, init="lecun")
         self.a_tgt = _param(generator, n_heads, dk, init="lecun")
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        _no_partition(pe, "GATConv")
         src, tgt, _, mask = _edge_arrays(edges, "GATConv")
         T, C, _ = x.shape
         H = self.n_heads
@@ -404,7 +441,9 @@ class RGCNConv(nn.Module):
                             init="lecun")
         self.b = _param(generator, out_dim, init=0.0)
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        _no_partition(pe, "RGCNConv")
         src, tgt, _, mask = _edge_arrays(edges, "RGCNConv")
         T, C, Din = x.shape
         N = T * C
@@ -450,7 +489,9 @@ class HANConv(nn.Module):
         self.Dense_1 = dense(out_dim, sem_dim, generator)
         self.sem_q = _param(generator, sem_dim, 1, init="lecun")
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        _no_partition(pe, "HANConv")
         src, tgt, _, mask = _edge_arrays(edges, "HANConv")
         T, C, _ = x.shape
         H, R, D = self.n_heads, self.num_relations, self.out_dim
@@ -489,7 +530,9 @@ class HetGNNConv(nn.Module):
         self.Dense_0 = dense(in_dim, out_dim, generator)
         self.a = _param(generator, out_dim, 1, init="lecun")
 
-    def forward(self, x, node_mask, se, em, generator=None, edges=None):
+    def forward(self, x, node_mask, se, em, generator=None, edges=None,
+                pe=None):
+        _no_partition(pe, "HetGNNConv")
         src, tgt, _, mask = _edge_arrays(edges, "HetGNNConv")
         T, C, _ = x.shape
         N, D = T * C, self.out_dim
@@ -514,12 +557,14 @@ def general_conv(conv_name, in_dim, out_dim, num_types, num_relations,
                  use_norm=True, use_rte=True, edge_impl="segment",
                  save_kv=False, edge_bf16=False, seg_pallas=False,
                  softmax_tilemax="", softmax_pallas=False,
-                 edge_bwd="permute") -> nn.Module:
+                 edge_bwd="permute", graph_axis="",
+                 gp_overlap=False) -> nn.Module:
     """The conv named ``conv_name`` (the JAX ``GeneralConv`` dispatcher,
     ``pyHGT/conv.py:303-324``): one call signature for the heterogeneous
     (hgt, dense_hgt, rgcn, han, hetgnn) and homogeneous (gcn, gat) convs.
     The module is returned itself, not wrapped, so its parameters sit
-    directly under ``convs.<i>``."""
+    directly under ``convs.<i>``. ``graph_axis`` / ``gp_overlap`` reach
+    :class:`HGTConv` (its edge-partitioned path)."""
     kw = dict(in_dim=in_dim, out_dim=out_dim, generator=generator)
     hgt = dict(
         kw, num_types=num_types, num_relations=num_relations,
@@ -528,7 +573,7 @@ def general_conv(conv_name, in_dim, out_dim, num_types, num_relations,
         seg_pallas=seg_pallas, softmax_tilemax=softmax_tilemax,
         softmax_pallas=softmax_pallas, edge_bwd=edge_bwd)
     if conv_name == "hgt":
-        return HGTConv(**hgt)
+        return HGTConv(**hgt, graph_axis=graph_axis, gp_overlap=gp_overlap)
     if conv_name == "dense_hgt":
         return DenseHGTConv(**hgt)
     if conv_name == "gcn":

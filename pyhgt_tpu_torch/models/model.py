@@ -19,6 +19,7 @@ from pyhgt_tpu_torch.models.conv import (
     lecun_normal_,
 )
 from pyhgt_tpu_torch.ops.hgt import typed_linear
+from pyhgt_tpu_torch.parallel.edge_partition import EdgeShard
 
 # the convs whose attention rides the sorted edge path when asked to
 SORTED_CONVS = ("hgt", "dense_hgt")
@@ -39,14 +40,23 @@ class GNN(nn.Module):
     edge arrays, which the segment path and the other convs read
     (:attr:`reads_edges`). The JAX ``__call__`` takes both the same way; a
     caller whose model does not read the raw arrays may leave them out, so
-    the sorted HGT path copies nothing more to the device than before."""
+    the sorted HGT path copies nothing more to the device than before.
+
+    ``graph_axis="graph"`` (the JAX ``graph_axis``; ``gp_overlap`` its ring
+    form) lets the HGT convs run edge-partitioned: ``forward(...,
+    pe=shard)`` with this rank's
+    :class:`~pyhgt_tpu_torch.parallel.edge_partition.EdgeShard` (or the
+    shard in ``se``'s place, so a task's loss passes it unchanged). The dropout masks are then drawn alike on every rank of the
+    graph group (the caller seeds their ``generator`` alike), as
+    ``shard_map`` shares the rng along ``graph``."""
 
     def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
                  n_layers, *, generator: torch.Generator, dropout=0.2,
                  conv_name="hgt", prev_norm=False, last_norm=False,
                  use_rte=True, edge_impl="segment", save_kv=False,
                  edge_bf16=False, seg_pallas=False, softmax_tilemax="",
-                 softmax_pallas=False, edge_bwd="permute"):
+                 softmax_pallas=False, edge_bwd="permute", graph_axis="",
+                 gp_overlap=False):
         super().__init__()
         self.conv_name, self.edge_impl = conv_name, edge_impl
         self.reads_edges = (conv_name not in SORTED_CONVS
@@ -64,17 +74,24 @@ class GNN(nn.Module):
                 edge_bf16=edge_bf16, seg_pallas=seg_pallas,
                 softmax_tilemax=softmax_tilemax,
                 softmax_pallas=softmax_pallas, edge_bwd=edge_bwd,
+                graph_axis=graph_axis, gp_overlap=gp_overlap,
             )
             for li in range(n_layers)
         )
 
-    def forward(self, node_feat, node_mask, se, em, generator=None,
-                edges=None):
+    def embed(self, node_feat, node_mask, generator=None):
+        """The adapted input: per-type linear, tanh, dropout, node mask."""
         h = torch.tanh(typed_linear(node_feat, self.adapt_w, self.adapt_b))
         h = dropout(h, self.dropout, self.training, generator)
-        h = h * node_mask[..., None]
+        return h * node_mask[..., None]
+
+    def forward(self, node_feat, node_mask, se, em, generator=None,
+                edges=None, pe=None):
+        if pe is None and isinstance(se, EdgeShard):
+            se, pe = None, se
+        h = self.embed(node_feat, node_mask, generator)
         for conv in self.convs:
-            h = conv(h, node_mask, se, em, generator, edges)
+            h = conv(h, node_mask, se, em, generator, edges, pe=pe)
         return h
 
 

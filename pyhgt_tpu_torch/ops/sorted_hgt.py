@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from pyhgt_tpu_torch.ops.hgt import (
     _block_relation_transform,
@@ -45,6 +46,7 @@ from pyhgt_tpu_torch.ops.pallas_seg import (
     live_partials_weighted,
     segment_softmax_partials,
 )
+from pyhgt_tpu_torch.parallel import mesh as pmesh
 
 NEG = -1e30
 _TILE = 128  # narrow-reduction tile (the host aux's REDUCE_TILE)
@@ -111,6 +113,57 @@ def _shift_max(x, ids, width):
         x = torch.where(same, torch.maximum(x, sx), x)
         s *= 2
     return x
+
+
+def ring_allreduce(x, group, op: str = "sum"):
+    """Ring all-reduce over the process ``group``: reduce-scatter, then
+    all-gather, one 1/P-sized chunk of the rows per hop
+    (:func:`~pyhgt_tpu_torch.parallel.mesh.exchange`, the ``ppermute`` of
+    the JAX package's ring): the form whose hops can overlap the edge
+    stage's other work. ``op`` is ``"sum"`` or ``"max"``; a row count not
+    divisible by P is padded with the op's identity. Returns a new
+    tensor."""
+    if group is None:
+        return x
+    ranks = dist.get_process_group_ranks(group)
+    P = len(ranks)
+    if P == 1:
+        return x
+    idx = ranks.index(dist.get_rank())
+    n0 = x.shape[0]
+    pad = (-n0) % P
+    fill = NEG if op == "max" else 0.0
+    buf = torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                   dtype=x.dtype, device=x.device)]) \
+        if pad else x.clone()
+    c = buf.shape[0] // P
+    combine = torch.maximum if op == "max" else torch.add
+    nxt, prv = ranks[(idx + 1) % P], ranks[(idx - 1) % P]
+    send = buf[idx * c:(idx + 1) * c]
+    for st in range(P - 1):
+        got = pmesh.exchange(send, nxt, prv, group)
+        j = (idx - st - 1) % P
+        send = combine(buf[j * c:(j + 1) * c], got)
+        buf[j * c:(j + 1) * c] = send
+    g = send
+    for st in range(P - 1):
+        g = pmesh.exchange(g, nxt, prv, group)
+        j = (idx - st) % P
+        buf[j * c:(j + 1) * c] = g
+    return buf[:n0]
+
+
+def _xreduce(x, xr, op: str):
+    """Cross-shard combine of the edge-partitioned edge stage: ``xr`` is
+    ``None`` (one shard: the identity) or ``(group, overlap)``, the graph
+    axis's process group and whether to go round the ring
+    (:func:`ring_allreduce`) instead of one all-reduce."""
+    if xr is None:
+        return x
+    group, overlap = xr
+    if overlap:
+        return ring_allreduce(x, group, op)
+    return pmesh.all_reduce(x.contiguous(), group, op)
 
 
 def _tile_partials(data, tile_local, K=_TILE):
@@ -278,15 +331,17 @@ def _attention(q_e, k_e, pri_e, mask, H, dk):
     return pre, torch.where(mask[:, None], att, torch.full_like(att, NEG))
 
 
-def _softmax_tiled(att, se):
+def _softmax_tiled(att, se, xr=None):
     m_n = seg_max_tiled(att, se.edge_tgt, se.live_last_tgt, se.seg_ptr2_tgt)
+    m_n = _xreduce(m_n, xr, "max")   # cross-shard boundary exchange (gp)
     ex = torch.exp(att - m_n[se.edge_tgt]) * se.edge_mask[:, None]
     den_n = seg_sum_tiled(ex, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+    den_n = _xreduce(den_n, xr, "sum")
     den_e = torch.clamp(den_n[se.edge_tgt], min=1e-30)
     return ex / den_e
 
 
-def _softmax_tilemax(att, se, K=_TILE):
+def _softmax_tilemax(att, se, K=_TILE, xr=None):
     """Segment softmax stabilized by the per-128-tile max instead of the
     per-segment running max (exact online-softmax algebra).
 
@@ -295,7 +350,11 @@ def _softmax_tilemax(att, se, K=_TILE):
     partials, the combine runs on the small live-row space in log space
     (``lse = m_tile + log(partial)``). A row can underflow only if another
     segment in its tile carries a logit >~87 above its own; a segment
-    whose every slice underflowed gets zeros, as in the JAX package."""
+    whose every slice underflowed gets zeros, as in the JAX package.
+
+    ``xr``: on an edge-partitioned run the per-segment stabilizer crosses
+    the shards before the denominators form (global max, each shard's
+    denominator against it, then the sum), as in the JAX package."""
     E, H = att.shape
     tiles = E // K
     a3 = att.reshape(tiles, K, H)
@@ -314,10 +373,11 @@ def _softmax_tilemax(att, se, K=_TILE):
         torch.full_like(live, NEG),
     )
     m_n = seg_max_csr(lse_live, se.seg_ptr2_tgt)              # [S, H]
+    m_n = _xreduce(m_n, xr, "max")     # cross-shard stabilizer (gp)
     S = m_n.shape[0]
     key_safe = torch.clamp(se.live_key_tgt, max=S - 1)
     scale = torch.exp(torch.clamp(lse_live - m_n[key_safe], max=0.0))
-    den_n = seg_sum_csr(scale, se.seg_ptr2_tgt)
+    den_n = _xreduce(seg_sum_csr(scale, se.seg_ptr2_tgt), xr, "sum")
     m_e = m_n[se.edge_tgt]
     ex = torch.where(
         m_e > -5e29,
@@ -328,7 +388,7 @@ def _softmax_tilemax(att, se, K=_TILE):
     return ex / den_e
 
 
-def _softmax_tilemax_auto(att, se, K=_TILE):
+def _softmax_tilemax_auto(att, se, K=_TILE, xr=None):
     """Runtime-guarded :func:`_softmax_tilemax`: the tilemax softmax is exact
     whenever every live logit sits within ~87 of its 128-edge tile's max.
     One ``[E, H]`` reduction checks the bound (``TILEMAX_SPREAD``) per batch
@@ -337,16 +397,22 @@ def _softmax_tilemax_auto(att, se, K=_TILE):
     The JAX package selects with ``lax.cond``; eager PyTorch reads the flag
     on the host, which waits for the device once per layer. Computing both
     softmaxes and selecting would need no wait but would always pay the
-    shift scan that the tilemax form exists to avoid."""
+    shift scan that the tilemax form exists to avoid.
+
+    On an edge-partitioned run the flag is max-reduced over the graph group
+    before it is read: every shard takes the same branch, or the ranks
+    would wait in different collectives."""
     E, H = att.shape
     tiles = E // K
     a3 = att.reshape(tiles, K, H)
     m_tile = a3.amax(dim=1, keepdim=True)                  # [tiles, 1, H]
     live = se.edge_mask.reshape(tiles, K)[:, :, None]
     bad = (((m_tile - a3) > TILEMAX_SPREAD) & live).any()
+    if xr is not None:
+        bad = _xreduce(bad.reshape(1).float(), xr, "max")[0] > 0
     if bool(bad):
-        return _softmax_tiled(att, se)
-    return _softmax_tilemax(att, se, K)
+        return _softmax_tiled(att, se, xr)
+    return _softmax_tilemax(att, se, K, xr)
 
 
 def _softmax_pallas(att, se):
@@ -369,39 +435,41 @@ def _softmax_pallas(att, se):
     return ex / den_e
 
 
-def _softmax(att, se, softmax_tilemax, softmax_pallas):
+def _softmax(att, se, softmax_tilemax, softmax_pallas, xr=None):
     """The edge stage's segment softmax ``w [E, H]`` f32, routed as the JAX
     package routes it: the kernel form needs the legacy target aux (its
     ``live_key``, and no rank cap: ``v == 0``), so on a capped aux
     ``softmax_pallas`` silently takes the next form; then tilemax
     (``"auto"``: guarded, any other true value: unguarded); else the
-    shift-scan softmax."""
+    shift-scan softmax. Edge-partitioned (``xr``), the kernel form is
+    skipped as in the JAX package: its partials see one shard's edges and
+    have no cross-shard combine."""
     paux = se.pseg_tgt
-    if (softmax_pallas and paux is not None and paux.live_key is not None
-            and not paux.v):
+    if (xr is None and softmax_pallas and paux is not None
+            and paux.live_key is not None and not paux.v):
         return _softmax_pallas(att, se)
     if softmax_tilemax == "auto":
-        return _softmax_tilemax_auto(att, se)
+        return _softmax_tilemax_auto(att, se, xr=xr)
     if softmax_tilemax:
-        return _softmax_tilemax(att, se)
-    return _softmax_tiled(att, se)
+        return _softmax_tilemax(att, se, xr=xr)
+    return _softmax_tiled(att, se, xr)
 
 
 def _edge_fwd_impl(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk,
                    use_rte, seg_pallas, softmax_tilemax,
-                   softmax_pallas=False):
+                   softmax_pallas=False, xr=None):
     dt = k_rel.dtype
     k_e, v_e = _gather_kv(k_rel, v_rel, k_tab, v_tab, se.gidx, se.tabidx,
                           use_rte)
     q_e = q_n[se.edge_tgt]
     pre, att = _attention(q_e, k_e, pri_e, se.edge_mask, H, dk)
-    w = _softmax(att, se, softmax_tilemax, softmax_pallas)
+    w = _softmax(att, se, softmax_tilemax, softmax_pallas, xr)
     aggr = _seg_sum_weighted(w, v_e, H, dk, se, "tgt", seg_pallas, dt)
     return aggr, w, pre, k_e, v_e
 
 
 def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
-              H, dk, use_rte, seg_pallas, edge_bwd="permute"):
+              H, dk, use_rte, seg_pallas, edge_bwd="permute", xr=None):
     """Scatter-free backward of the edge stage, in one of the JAX package's
     four strategies for the src/tab-grouped gradient reductions:
 
@@ -420,6 +488,9 @@ def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
       through the window aux, or is rebuilt the same way in tab order.
     - ``recompute``: both groupings rebuilt natively in their own order;
       no [E, D] permute at all.
+
+    Edge-partitioned (``xr``), the softmax Jacobian's per-segment sum
+    crosses the shards; every returned gradient is this shard's part.
     """
     dt = k_rel.dtype
     D = q_n.shape[-1]
@@ -434,8 +505,11 @@ def _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, kv, se,
     g_msg = g_aggr_l[se.edge_tgt]                          # node gather
     g_w = _head_sum_prod(g_msg, v_e, H, dk)                # [E, H]
 
-    # softmax backward: g_att = w * (g_w - sum_seg(w * g_w))
-    s_n = seg_sum_tiled(w * g_w, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt)
+    # softmax backward: g_att = w * (g_w - sum_seg(w * g_w)); the sum
+    # crosses the graph shards on a partitioned run
+    s_n = _xreduce(
+        seg_sum_tiled(w * g_w, se.tl_tgt, se.live_idx_tgt, se.seg_ptr2_tgt),
+        xr, "sum")
     g_att = w * (g_w - s_n[se.edge_tgt])
     g_att = torch.where(mask[:, None], g_att, torch.zeros_like(g_att))
 
@@ -539,10 +613,10 @@ class _EdgeStage(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims):
         (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax,
-         softmax_pallas, _) = dims
+         softmax_pallas, _, xr) = dims
         aggr, w, pre, k_e, v_e = _edge_fwd_impl(
             q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H, dk, use_rte,
-            seg_pallas, softmax_tilemax, softmax_pallas)
+            seg_pallas, softmax_tilemax, softmax_pallas, xr)
         if any(ctx.needs_input_grad):
             # `pre` ([E, H], the prior-less logits) rides along so the
             # backward never re-gathers q_e for it
@@ -554,21 +628,21 @@ class _EdgeStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_aggr):
-        H, dk, use_rte, _, seg_pallas, _, _, edge_bwd = ctx.dims
+        H, dk, use_rte, _, seg_pallas, _, _, edge_bwd, xr = ctx.dims
         q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w, pre, *kv = ctx.saved_tensors
         if ctx.se.perm_src is None:
             raise ValueError("the backward needs a batch sorted with "
                              "with_backward=True")
         grads = _edge_bwd(g_aggr, q_n, k_rel, v_rel, k_tab, v_tab, pri_e, w,
                           pre, tuple(kv) or None, ctx.se, H, dk, use_rte,
-                          seg_pallas, edge_bwd)
+                          seg_pallas, edge_bwd, xr)
         return (*grads, None, None)
 
 
 def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
                    use_rte, save_kv=False, seg_pallas=False,
                    softmax_tilemax=False, softmax_pallas=False,
-                   edge_bwd="permute"):
+                   edge_bwd="permute", xr=None):
     """The edge stage: returns ``aggr [N, D]`` (f32). Inputs as in the JAX
     package's ``hgt_edge_stage``: ``q_n [N, D]`` target queries,
     ``k_rel/v_rel [B*C, D]`` relation-transformed banks, ``k_tab/v_tab``
@@ -577,24 +651,74 @@ def hgt_edge_stage(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
     ``save_kv`` keeps the gathered ``k_e``/``v_e`` for it (2 E×D buffers for
     2 fewer backward gathers). ``softmax_tilemax`` (False | True | "auto")
     and ``softmax_pallas`` choose the softmax form (:func:`_softmax`). Under
-    ``torch.no_grad()`` nothing is kept."""
+    ``torch.no_grad()`` nothing is kept. ``xr = (group, overlap)``: ``se``
+    is one shard of an edge-partitioned batch, and ``aggr`` and the input
+    gradients are this shard's parts (:func:`hgt_conv_core_sorted` combines
+    them)."""
     if edge_bwd not in EDGE_BWD:
         raise ValueError(f"edge_bwd {edge_bwd!r} not in {EDGE_BWD}")
     dims = (H, dk, use_rte, save_kv, seg_pallas, softmax_tilemax,
-            softmax_pallas, edge_bwd)
+            softmax_pallas, edge_bwd, xr)
     return _EdgeStage.apply(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, dims)
 
 
 def hgt_edge_attention(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, *, H, dk,
                        use_rte, seg_pallas=False, softmax_tilemax=False,
-                       softmax_pallas=False):
+                       softmax_pallas=False, xr=None):
     """The ``[E, H]`` softmax attention weights of the edge stage, in the
     sorted edge order (the reference stashes them on the module for
     visualization, ``pyHGT/conv.py:106-108``). Not differentiated."""
     with torch.no_grad():
         return _edge_fwd_impl(q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H,
                               dk, use_rte, seg_pallas, softmax_tilemax,
-                              softmax_pallas)[1]
+                              softmax_pallas, xr)[1]
+
+
+class _SumGradsOverShards(torch.autograd.Function):
+    """Identity forward; the backward sums each input's gradient over the
+    graph group (one flat f32 all-reduce). Applied to the inputs of an
+    edge-partitioned conv core: the core's work is replicated on every
+    rank but the edge stage's, which sees one shard, so each rank's
+    backward gives these inputs its shard's part of their gradients, and
+    the sum is the single-device gradient, the same on every rank (the JAX
+    package gets this from ``shard_map``'s transpose of its replicated
+    inputs). The inputs (the layer's input and weights, ~44 MB f32 a layer
+    at the bench preset) are the smallest cut: the node-level tensors
+    entering the edge stage are ~200 MB."""
+
+    @staticmethod
+    def forward(ctx, xr, *xs):
+        ctx.xr = xr
+        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([
+            (g if g is not None else torch.zeros(shape, device=dev)
+             ).reshape(-1).float()
+            for g, (shape, _, dev) in zip(gs, ctx.meta)])
+        flat = _xreduce(flat, ctx.xr, "sum")
+        out, at = [], 0
+        for shape, dt, _ in ctx.meta:
+            n = math.prod(shape)
+            out.append(flat[at:at + n].reshape(shape).to(dt))
+            at += n
+        return (None, *out)
+
+
+class _SumOverShards(torch.autograd.Function):
+    """Forward: the sum of each shard's partial aggregation over the graph
+    group; backward: the identity (each shard's partial enters the sum
+    once, so its gradient is the sum's, which every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, x, xr):
+        return _xreduce(x.clone(), xr, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _tab_select(k_tab, v_tab, tab_sel):
@@ -624,6 +748,8 @@ def hgt_conv_core_sorted(
     softmax_pallas: bool = False,
     edge_bwd: str = "permute",
     return_attention: bool = False,
+    graph_group=None,  # se is one shard of an edge-partitioned batch
+    gp_overlap: bool = False,  # ring all-reduce boundary exchange
 ):
     """Attention + message aggregation over the target-sorted layout.
     Returns aggr ``[T, C, Dout]`` in ``x.dtype``. Everything around the edge
@@ -640,7 +766,28 @@ def hgt_conv_core_sorted(
     softmax. ``softmax_pallas`` routes the softmax through the
     online-partials kernel where the target aux allows it
     (:func:`_softmax`). ``return_attention`` also returns the ``[E, H]``
-    softmax weights the edge stage used, in sorted edge order."""
+    softmax weights the edge stage used, in sorted edge order.
+
+    ``graph_group`` (a process group): ``se`` is this rank's shard of an
+    edge-partitioned batch (:mod:`pyhgt_tpu_torch.parallel.edge_partition`)
+    and the other ranks of the group hold the others. The node-level work
+    is replicated; the softmax statistics, the backward's softmax-Jacobian
+    sum and the aggregation cross the shards (all-reduces over ``[N, H]``
+    and ``[N, D]``, or rings under ``gp_overlap``), so ``out`` is the whole
+    batch's on every rank. In the backward each rank sums the gradients of
+    the core's inputs (``x`` and the weights) over the group, so every
+    parameter ends with the single-device gradient on every rank
+    (:class:`_SumGradsOverShards`)."""
+    xr = None
+    if graph_group is not None:
+        xr = (graph_group, gp_overlap)
+        ins = [x, wq, bq, wk, bk, wv, bv, rel_pri, rel_att, rel_msg]
+        if rte_vec is not None:
+            ins.append(rte_vec)
+        ins = _SumGradsOverShards.apply(xr, *ins)
+        x, wq, bq, wk, bk, wv, bv, rel_pri, rel_att, rel_msg = ins[:10]
+        if rte_vec is not None:
+            rte_vec = ins[10]
     T, C, Din = x.shape
     Dout = wq.shape[-1]
     H, dk = n_heads, Dout // n_heads
@@ -660,14 +807,14 @@ def hgt_conv_core_sorted(
         L = rte_vec.shape[0]
         k_tab = _rte_block_tables(rte_vec, wk, rel_att, em, H, dk).reshape(B * L, Dout)
         v_tab = _rte_block_tables(rte_vec, wv, rel_msg, em, H, dk).reshape(B * L, Dout)
-        if se.tab_sel is not None:
-            k_tab, v_tab = _tab_select(k_tab, v_tab, se.tab_sel)
     else:
         k_tab = v_tab = None
-
+    if use_rte and se.tab_sel is not None:
+        k_tab, v_tab = _tab_select(k_tab, v_tab, se.tab_sel)
     pri_e = se.rel_onehot @ rel_pri.float()              # [E, H]
 
     q_n = q.reshape(N, Dout)
+
     if edge_dtype is not None:
         q_n = q_n.to(edge_dtype)
         k_rel = k_rel.to(edge_dtype)
@@ -681,13 +828,16 @@ def hgt_conv_core_sorted(
         q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
         use_rte=use_rte, save_kv=save_kv, seg_pallas=seg_pallas,
         softmax_tilemax=tilemax, softmax_pallas=softmax_pallas,
-        edge_bwd=edge_bwd,
+        edge_bwd=edge_bwd, xr=xr,
     )
+    if xr is not None:
+        # the shards' partial aggregations combine once per layer
+        aggr = _SumOverShards.apply(aggr.float(), xr)
     out = aggr.reshape(T, C, Dout).to(x.dtype)
     if return_attention:
         w = hgt_edge_attention(
             q_n, k_rel, v_rel, k_tab, v_tab, pri_e, se, H=H, dk=dk,
             use_rte=use_rte, seg_pallas=seg_pallas, softmax_tilemax=tilemax,
-            softmax_pallas=softmax_pallas)
+            softmax_pallas=softmax_pallas, xr=xr)
         return out, w
     return out

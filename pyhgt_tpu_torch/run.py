@@ -46,12 +46,27 @@ either package or a graph pickled by the reference
 ``--device`` (default ``cuda``) takes the place of the JAX package's
 ``--platform``: without a GPU the default raises, ``--device cpu`` runs
 the plain CPU path.
+
+The training tasks take the parallel modes, one process per rank under
+``torchrun``::
+
+    torchrun --standalone --nproc_per_node <dp*gp*pp> -m pyhgt_tpu_torch.run \
+        ogbn_mag --data <graph> --gp 2 [--dp N] [--pp N --pp_micro M] \
+        [--gp_overlap] [--dist_backend nccl|gloo]
+
+``--dist_backend`` is ``nccl`` by default on a GPU (one card per rank) and
+``gloo`` on the CPU; ``gloo`` also lets several ranks share one card, which
+NCCL refuses. Each rank runs on ``cuda:<LOCAL_RANK % cards>`` (or the
+CPU); rank 0 logs, evaluates and writes the checkpoints, and every rank's
+kernel launches are logged at the end. A world size other than
+``dp * gp * pp`` raises with the torchrun line to use.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -136,6 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda, which "
                         "raises without a GPU; 'cpu' runs the plain path)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the parallel modes "
+                        "(default nccl on a GPU, gloo on the CPU; gloo to "
+                        "put several ranks on one card)")
     ref = ExperimentConfig()
     for f in dataclasses.fields(ExperimentConfig):
         if f.name == "data_path":
@@ -225,7 +244,9 @@ def main(argv=None) -> int:
 
     if args.task in ("paper_field", "paper_venue", "author_disambiguation",
                      "ogbn_mag"):
+        args.device = start_world(cfg, args)
         out = train(args, cfg, graph, log)
+        report_launches(log)
         if args.plot:
             plot(out["history"], cfg)
     elif args.task == "eval_ogbn_mag":
@@ -252,6 +273,53 @@ def main(argv=None) -> int:
             serve_jsonl(pred, log=log, coalesce_wait=args.coalesce_wait,
                         deadline_ms=args.deadline_ms)
     return 0
+
+
+def start_world(cfg: ExperimentConfig, args) -> str:
+    """Join the process group of a parallel run (``dp * gp * pp`` ranks,
+    one per process, under torchrun) and return this rank's device; a
+    single-process run starts nothing. A world of another size raises,
+    with the torchrun line to use."""
+    from pyhgt_tpu_torch.parallel.distributed import initialize
+
+    need = max(cfg.dp, 1) * max(cfg.gp, 1) * max(cfg.pp, 1)
+    have = int(os.environ.get("WORLD_SIZE", "1"))
+    if need != have:
+        raise SystemExit(
+            f"dp x gp x pp = {need} ranks but the world has {have}: run "
+            f"torchrun --standalone --nproc_per_node {need} -m "
+            f"pyhgt_tpu_torch.run {' '.join(sys.argv[1:])}")
+    info = initialize(args.dist_backend, args.device)
+    if info["backend"] and info["process_index"] == 0:
+        print(f"dist: {have} ranks, backend {info['backend']}, rank 0 on "
+              f"{info['device']}", flush=True)
+    return str(info["device"])
+
+
+def report_launches(log) -> None:
+    """Log every rank's kernel launches (rank 0 gathers them) when the run
+    has more than one rank."""
+    import torch.distributed as dist
+
+    from pyhgt_tpu_torch.ops import pallas_seg as ps
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    pair, slab = ps.live_partials_pair, ps.live_partials_slab
+    mine = {"live_partials": ps.live_partials.launches,
+            "pair_runs": pair.launches - pair.window_launches,
+            "pair_window": pair.window_launches,
+            "slab_runs": slab.launches - slab.window_launches,
+            "slab_window": slab.window_launches,
+            "weighted": ps.live_partials_weighted.launches,
+            "softmax": ps.segment_softmax_partials.launches,
+            "head_sum": ps.head_sum_product.launches}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        log("kernel launches per rank " + json.dumps(every))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def train(args, cfg: ExperimentConfig, graph, log) -> dict:

@@ -531,6 +531,43 @@ def sort_edges(
                 [onehot, np.zeros((padn, R), np.float32)])
         safe_tgt = np.where(mask, tgt, N - 1).astype(np.int32)
 
+    src_cut = src_s1 = 0
+    if with_backward and src_split_cap:
+        # static meta/self boundary in src order (per-block counts are
+        # static by the masked-edge convention; self blocks come last in
+        # GraphSchema.build_blocks). Valid only when the meta capacities
+        # happen to be tile-aligned: _src_split_aux checks.
+        meta = [b for b in layout.blocks if b.meta.rel != SELF_REL]
+        src_cut = sum(b.cap for b in meta)
+        src_s1 = len(meta) * C
+    return _pack_sorted(
+        src, safe_tgt, mask, key, gidx, tabidx, onehot, N=N, B=B, C=C, L=L,
+        nb=nb, pk=K, pw=W, tgt_rank_cap=tgt_rank_cap, tab_cap=tab_cap,
+        src_rank_cap=src_rank_cap, src_split_cap=src_split_cap,
+        src_cut=src_cut, src_s1=src_s1, with_backward=with_backward)
+
+
+def _pack_sorted(src, safe_tgt, mask, key, gidx, tabidx, onehot, *, N, B, C,
+                 L, nb=None, pk=None, pw=None, tgt_rank_cap: int = 0,
+                 tab_cap: int = 0, src_rank_cap: int = 0,
+                 src_split_cap: int = 0, src_cut: int = 0, src_s1: int = 0,
+                 with_backward: bool = True) -> SortedEdges:
+    """The pack stage of :func:`sort_edges` (the JAX package's
+    ``_pack_sorted``): the aux of edge arrays that are already
+    target-sorted (``key`` non-decreasing, padded edges last with key
+    ``N``) and padded to a multiple of the kernel tile ``pk``, packed into a
+    :class:`SortedEdges`. :func:`sort_edges` and the per-shard pack of
+    :func:`pyhgt_tpu_torch.parallel.edge_partition.partition_sorted` share
+    it (a contiguous slice of sorted edges is sorted, so each graph shard
+    gets the single-device batch's aux); ``nb`` is the C++ batch-prep
+    module or None for numpy, bit-identical either way. ``src_cut`` /
+    ``src_s1`` are the two-region src aux's static boundary
+    (``src_split_cap``)."""
+    K = pk or PK
+    W = pw or (pk or PW)
+    if key.shape[0] % K:
+        raise ValueError(f"edge count {key.shape[0]} not a multiple of the "
+                         f"{K} tile")
     if with_backward:
         # the tab order is taken on the uncompacted index (the compaction
         # below is monotone and keeps it sorted)
@@ -556,15 +593,6 @@ def sort_edges(
 
     bwd = {}
     if with_backward:
-        src_cut = src_s1 = 0
-        if src_split_cap:
-            # static meta/self boundary in src order (per-block counts are
-            # static by the masked-edge convention; self blocks come last
-            # in GraphSchema.build_blocks). Valid only when the meta
-            # capacities happen to be tile-aligned: _src_split_aux checks.
-            meta = [b for b in layout.blocks if b.meta.rel != SELF_REL]
-            src_cut = sum(b.cap for b in meta)
-            src_s1 = len(meta) * C
         bwd = _backward_aux(gidx, tabidx, safe_tgt, perm_src, perm_tab,
                             B=B, C=C, Lt=Lt, K=K, W=W,
                             src_rank_cap=src_rank_cap,

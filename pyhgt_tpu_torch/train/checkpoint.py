@@ -39,11 +39,15 @@ def write_checkpoint(path: str, model_state: Mapping[str, torch.Tensor],
 def save_checkpoint(path: str, state: TrainState, force: bool = True) -> None:
     """Save a :class:`~pyhgt_tpu_torch.train.step.TrainState` (model,
     optimizer, step) to the directory ``path``; ``force=False`` refuses to
-    overwrite one."""
+    overwrite one. A state whose optimizer is None (a pipeline's model
+    gathered on one rank, whose optimizer state is spread over the stages)
+    is written with none."""
     if not force and os.path.exists(os.path.join(path, CHECKPOINT_FILE)):
         raise FileExistsError(f"{path} already holds a checkpoint")
+    opt = state.optimizer
     write_checkpoint(path, state.model.state_dict(),
-                     state.optimizer.inner.state_dict(), state.step)
+                     opt.inner.state_dict() if opt is not None else None,
+                     state.step)
 
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:

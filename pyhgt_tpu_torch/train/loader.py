@@ -16,7 +16,16 @@ device prefetch:
   unless the copy is not done (the reference pays a ``.to(device)`` on the
   critical path every batch, ``train_paper_field.py:242-243``);
 - ``repeat`` re-yields each sampled batch k times (``--repeat``,
-  ``train_paper_field.py:57-58,240``).
+  ``train_paper_field.py:57-58,240``);
+- ``stack`` collects that many items per yielded one (``collate``), the
+  pipeline's microbatches;
+- ``group``: the ranks of a process group train on the same items (a graph
+  group's shards of one batch, a pipe group's microbatches). The group's
+  rank ``src`` alone samples; each item goes from it to the others (all of
+  it, or under ``split`` each rank its own part), and ``local`` makes
+  what a rank received into what its step reads. The loader's threads
+  finish items in no fixed order, so sampling on every rank of the group
+  would train the ranks on different batches.
 
 An item is any nest of dataclasses, tuples, lists and dicts whose leaves
 are numpy arrays or CPU tensors (other leaves pass through unchanged).
@@ -78,17 +87,34 @@ class PrefetchLoader:
         device=None,
         stack: int = 1,
         collate: Optional[Callable] = None,
+        group=None,
+        src: int = 0,
+        split: Optional[Callable] = None,
+        local: Optional[Callable] = None,
     ) -> None:
-        """``stack > 1`` (``collate``) is the JAX package's data- and
-        pipeline-parallel feed, which is not ported yet: it raises."""
-        if stack > 1 or collate is not None:
-            raise NotImplementedError(
-                "stack > 1 / collate (the dp and pp feeds) is not ported yet")
+        """``stack > 1`` collects that many host items per yielded item and
+        combines them with ``collate(items)`` (default: the list). With a
+        process ``group``, the global rank ``src`` produces the items and
+        sends them to the group: ``split(item)`` (on ``src``) gives one
+        part per rank of the group, in group order, each rank receiving
+        its own; without it every rank receives the whole item. ``local``
+        (every rank) maps the received item to the one yielded. The other
+        ranks start no sampling threads."""
+        import torch.distributed as dist
+
         self.sample_fn = sample_fn
-        self.n_workers = n_workers
         self.repeat = repeat
         self.device = resolve_device(device)
+        self.stack = stack
+        self.collate = collate or list
+        self.group, self.src = group, src
+        self.split, self.local = split, local
+        self._is_src = group is None or dist.get_rank() == src
+        self.n_workers = n_workers if self._is_src else 0
         self._pin = self.device.type == "cuda"
+        # items that travel between ranks, or change here, pin after that
+        self._late_pin = self._pin and (group is not None
+                                        or local is not None)
         self._host_q: "queue.Queue" = queue.Queue(maxsize=queue_size)
         self._stop = threading.Event()
         self._failed = threading.Event()
@@ -96,7 +122,7 @@ class PrefetchLoader:
         self._seed_lock = threading.Lock()
         self._threads = [
             threading.Thread(target=self._worker, daemon=True)
-            for _ in range(n_workers)
+            for _ in range(self.n_workers)
         ]
         self._started = False
         # (copy-done event, pinned host item): each pinned item is held
@@ -117,7 +143,7 @@ class PrefetchLoader:
             rng = np.random.default_rng(self._next_seed())
             try:
                 batch = self.sample_fn(rng)
-                if self._pin:
+                if self._pin and not self._late_pin:
                     batch = map_arrays(_pinned, batch)
             except Exception as e:  # fail fast, surface in consumer
                 self._failed.set()  # __iter__ raises instead of blocking
@@ -174,6 +200,47 @@ class PrefetchLoader:
             raise item
         return item
 
+    def _next_host_item(self):
+        """The next item of this rank: ``stack`` host items collated, sent
+        over the group when there is one (a failure on ``src`` travels the
+        same way, so every rank raises), then ``local``."""
+        import torch.distributed as dist
+
+        item = None
+        if self._is_src:
+            try:
+                if self.stack > 1:
+                    item = self.collate([self._get_host_item()
+                                         for _ in range(self.stack)])
+                else:
+                    item = self._get_host_item()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                if self.group is None:
+                    raise
+                item = e
+        if self.group is not None:
+            if self.split is not None:
+                parts = None
+                if self._is_src:
+                    parts = ([item] * dist.get_world_size(self.group)
+                             if isinstance(item, Exception)
+                             else self.split(item))
+                box = [None]
+                dist.scatter_object_list(box, parts, src=self.src,
+                                         group=self.group)
+            else:
+                box = [item]
+                dist.broadcast_object_list(box, src=self.src,
+                                           group=self.group)
+            item = box[0]
+            if isinstance(item, Exception):
+                raise item
+        if self.local is not None:
+            item = self.local(item)
+        if self._late_pin:
+            item = map_arrays(_pinned, item)
+        return item
+
     def _to_device(self, pinned):
         """Start the item's copies on the side stream; returns the device
         item and the event that marks them done."""
@@ -200,7 +267,7 @@ class PrefetchLoader:
         self.start()
         pending = None  # one-deep device prefetch pipeline
         while True:
-            item = self._get_host_item()
+            item = self._next_host_item()
             if self._pin:
                 item = self._to_device(item)
             for _ in range(self.repeat):

@@ -104,14 +104,25 @@ def onecycle_schedule(max_lr: float = 5e-4, total_steps: int = 1000,
     return schedule
 
 
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float):
+def grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the gradients of ``params``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                         norm=None):
     """Scale the gradients in place by ``max_norm / max(norm, max_norm)``
     (optax ``clip_by_global_norm``: untouched below the limit, exactly
     ``max_norm`` above it). ``torch.nn.utils.clip_grad_norm_`` divides by
     ``norm + 1e-6`` instead, which differs in the sixth digit. No
-    device-to-host read. Returns the norm before clipping."""
+    device-to-host read. ``norm`` (default: :func:`grad_norm` of
+    ``params``) is the global norm to clip by, for parameters spread over
+    several processes. Returns the norm before clipping."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if norm is None:
+        norm = grad_norm(params)
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -122,13 +133,16 @@ class ScheduledOptimizer:
     clip by global norm, then update at ``schedule(count)``. ``count`` is
     the number of updates made so far, so, as optax does, the first update
     uses ``schedule(0)`` (torch's schedulers are stepped after the
-    optimizer, which gives the same sequence)."""
+    optimizer, which gives the same sequence). ``norm_fn``, when set, gives
+    the global gradient norm the clip uses (the pipeline's parameters are
+    spread over its stages)."""
 
     def __init__(self, inner: torch.optim.Optimizer,
                  schedule: Callable[[int], float],
                  clip_norm: Optional[float]):
         self.inner, self.schedule, self.clip_norm = inner, schedule, clip_norm
         self.count = 0
+        self.norm_fn: Optional[Callable[[], torch.Tensor]] = None
 
     @property
     def params(self):
@@ -139,7 +153,9 @@ class ScheduledOptimizer:
 
     def step(self):
         if self.clip_norm is not None:
-            clip_by_global_norm_(self.params, self.clip_norm)
+            clip_by_global_norm_(
+                self.params, self.clip_norm,
+                self.norm_fn() if self.norm_fn is not None else None)
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr

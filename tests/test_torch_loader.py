@@ -76,8 +76,30 @@ def test_stop_returns_with_the_queue_full():
 
 
 def test_stack_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PrefetchLoader(sample_fn, stack=2, device="cpu")
+    """``stack`` / ``collate`` (the pipeline's feed) are ported now: with
+    the JAX loader's default collate (a stack of each leaf on a new leading
+    axis) the port yields the JAX loader's stacked items; by default it
+    yields the list of the items."""
+    pytest.importorskip("jax")
+    from pyhgt_tpu.train.loader import PrefetchLoader as JaxLoader
+
+    def stack(items):
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    with JaxLoader(sample_fn, n_workers=1, stack=2, seed=5) as jl:
+        want = jl.take(3)
+    with PrefetchLoader(sample_fn, n_workers=1, stack=2, collate=stack,
+                        seed=5, device="cpu") as pl:
+        got = pl.take(3)
+    for g, w in zip(got, want):
+        for k in ("ids", "x"):
+            assert g[k].shape[0] == 2
+            np.testing.assert_array_equal(g[k], np.asarray(w[k]))
+    with PrefetchLoader(sample_fn, n_workers=1, stack=2, seed=5,
+                        device="cpu") as pl:
+        (items,) = pl.take(1)
+    assert isinstance(items, list) and len(items) == 2
+    np.testing.assert_array_equal(items[1]["ids"], got[0]["ids"][1])
 
 
 @dataclasses.dataclass
