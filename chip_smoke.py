@@ -149,7 +149,22 @@ presets, and checks every hand-written kernel on them:
    1), then ``run serve`` of rank 0's checkpoint answering 2 requests;
    ``[pp-run]``: ``run paper_field --pp 2`` (4 microbatches a step) and
    ``[dp-gp-run]``: ``run paper_field --dp 2 --gp 2`` (4 ranks) on the OAG
-   proxy (1 epoch of 2 steps); every rank's launches asserted.
+   proxy (1 epoch of 2 steps); every rank's launches asserted;
+22. ``[tp]`` (in the world of item 20): tp = 2 on the seed-0 batch, each
+   rank a sharded copy of the flagship (D / tp columns, H / tp heads); the
+   loss and every gradient, gathered over the model group, against the
+   single process; the replicated parameters equal on both ranks after the
+   update; launches, step, peak memory and one tp layer's gloo collectives;
+   ``[determinism]`` lines: the single process and a tp rank each against
+   itself on the same batch and weights; ``[tp-kernels]``: the walks and
+   the softmax partials at a tp rank's widths (the bench batch and an
+   ``[ogbn]`` item at D 256, a paper-field item at D 200 and 4 heads)
+   against their plain versions and timed beside their bounds;
+   ``[tp-run]``: ``run paper_field --tp 2`` (1 epoch of 2 steps), its
+   second epoch resumed in a 2-rank world (``resume=True``), rank 0's
+   checkpoint loaded by one process on the card, which answers a batch; ``[dp-tp-run]``: ``run
+   paper_field --dp 2 --tp 2`` (4 ranks, 1 epoch of 2 steps); every rank's
+   launches asserted.
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -2021,14 +2036,15 @@ def oag_field_item(cfg, graph):
     return item, layout, em, task, pairs
 
 
-def phase_path_kernels(tag, dev, se, cfg):
+def phase_path_kernels(tag, dev, se, cfg, softmax=True):
     """The kernels of a path held against their plain versions on one real
     batch of it at its widths (rows of n_hid, bf16 and f32, the runs aux on
     outputs whose memory held NaN; logits of n_heads), and timed in bf16
     beside their bounds: ``live_partials`` on the target aux, the pair and
-    the slab on the src runs and tab-window aux, the softmax partials.
-    ``tag``: ``oag`` or ``ogbn``. Returns a dict of record keys, prefixed
-    with the tag, per kernel."""
+    the slab on the src runs and tab-window aux, and unless ``softmax`` is
+    false (a rank-capped target aux, which that kernel does not take) the
+    softmax partials. ``tag``: ``oag``, ``ogbn`` or a ``tp_`` width.
+    Returns a dict of record keys, prefixed with the tag, per kernel."""
     D, H = cfg.n_hid, cfg.n_heads
     gen = torch.Generator(device=dev).manual_seed(7)
     E = se.pseg_tgt.loc.size
@@ -2117,6 +2133,8 @@ def phase_path_kernels(tag, dev, se, cfg):
             slab = torch.cat([d1, d2], dim=1)
             t = time_slab(f"[{tag}] live_partials_slab {name}", slab, gaux)
             out[f"slab_{kind}"] = keys(slab.shape, slab_err, t)
+    if not softmax:
+        return out
 
     gaux = se.pseg_tgt.to(dev)
     att = torch.randn(E, H, generator=gen, device=dev) * 4
@@ -3097,7 +3115,8 @@ def phase_convert(workdir):
 
 
 # ------------------------------------------------------- the parallel modes
-# [gp-kernels], [gp] / [dp] / [pp], [gp-run], [pp-run], [dp-gp-run]
+# [gp-kernels], [gp] / [dp] / [pp] / [tp], [gp-run], [pp-run], [dp-gp-run],
+# [tp-kernels], [tp-run], [dp-tp-run]
 GP = 2
 PP_MICRO = 4
 # a mode's step against the single-process step on the card, same inputs
@@ -3108,7 +3127,9 @@ PP_MICRO = 4
 PAR_LOSS_TOL = 1e-3
 PAR_GRAD_TOL = 2e-2
 # the seeds of the bench batches each mode's step trains on
-PAR_SEEDS = {"gp": (0,), "dp": (0, 1), "pp": tuple(range(PP_MICRO))}
+PAR_SEEDS = {"gp": (0,), "dp": (0, 1), "pp": tuple(range(PP_MICRO)),
+             "tp": (0,)}
+TP = 2
 PAR_TIMED_STEPS = 3
 # the parallel runs: (runner argv, cuts, ranks)
 GP_RUN_CUTS = ["--n_epoch", "1", "--n_batch", "2", "--vr_num", "1"]
@@ -3291,14 +3312,23 @@ def par_reference(dev, path, preset="bench"):
     ``path`` for the ranks; and the single-process step's time and peak
     memory on the seed-0 batch."""
     fl = build_flagship(preset, device=dev, seed=0, dropout=0.0)
-    per = {}
-    for seed in sorted({s for v in PAR_SEEDS.values() for s in v}):
+
+    def loss_and_grads(seed):
         batch, labels = synth_flagship_batch(fl, seed=seed)
         fl.model.zero_grad(set_to_none=True)
         loss = fl.loss(batch, fl.sort(batch), labels)
         loss.backward()
-        per[seed] = (loss.item(), {n: p.grad.detach().cpu()
-                                   for n, p in fl.model.named_parameters()})
+        return (loss.item(), {n: p.grad.detach().cpu()
+                              for n, p in fl.model.named_parameters()})
+
+    per = {seed: loss_and_grads(seed)
+           for seed in sorted({s for v in PAR_SEEDS.values() for s in v})}
+    again = loss_and_grads(0)
+    log(f"[determinism] single process ({preset} preset, dropout 0), the "
+        f"seed-0 batch and the same weights twice: loss {per[0][0]:.6f} and "
+        f"{again[0]:.6f} (equal {per[0][0] == again[0]}); gradients max err "
+        f"{grads_err(again[1], per[0][1]):.2e} of each tensor's max |first| "
+        f"| {card_line()}")
     torch.save(per, path)
     batch, labels = synth_flagship_batch(fl, seed=0)
     args = fl.to_device(batch, fl.sort(batch), labels)
@@ -3406,9 +3436,120 @@ def _gp_allreduce_ms(fl, dev):
     return out
 
 
+def grads_err(got, want):
+    """The largest gradient error over the tensors of ``want``, each as a
+    share of the tensor's max |want|."""
+    return max(float((got[n].float() - w).abs().max())
+               / max(float(w.abs().max()), 1e-12) for n, w in want.items())
+
+
+def _tp_mode(rank, ref, dev, preset):
+    """tp = 2 on this rank (a sharded copy of the flagship, the seed-0
+    batch): the loss and every gradient, gathered over the model group,
+    against the single-process reference; the same step's gradients twice
+    (tp against itself); the launches of one step; the replicated
+    parameters after the update equal on both ranks; the step timed, the
+    peak memory, and the gloo collectives of one tp layer."""
+    import torch.distributed as dist
+
+    from pyhgt_tpu_torch.bench import parallel_trainer
+    from pyhgt_tpu_torch.parallel import mesh as pmesh
+    from pyhgt_tpu_torch.parallel.spmd import make_step
+
+    fl = build_flagship(preset, device=dev, seed=0, dropout=0.0)
+    vg, opt, args, n_edges = parallel_trainer(fl, "tp", TP)
+    mesh = pmesh.make_mesh(n_data=1, n_model=TP)
+    named = list(fl.model.named_parameters())
+    axes = pmesh.param_shardings(named)
+
+    def gathered():
+        return {n: pmesh.join_along(p.grad.detach(), axes[n], mesh).cpu()
+                for n, p in named}
+
+    want_loss = ref[0][0]
+    _sync(dev)
+    _reset_peak(dev)
+    reset_counts()
+    opt.zero_grad()
+    loss = float(vg(*args))
+    _sync(dev)
+    counts = read_counts()
+    first = gathered()
+    grad_err = grads_err(first, ref[0][1])
+    opt.zero_grad()
+    loss2 = float(vg(*args))
+    self_err = grads_err(gathered(), first)
+    opt.step()
+    rep = [p for n, p in named if axes[n] is None]
+    flat = torch.cat([p.detach().reshape(-1).float() for p in rep])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    same = bool(torch.equal(hi, lo))
+    step = make_step(vg, opt)
+    float(step(*args))
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED_STEPS):
+        float(step(*args))
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+    peak = _peak_gib(dev)
+    out = dict(loss=loss, loss2=loss2, want_loss=want_loss,
+               grad_err=grad_err, self_err=self_err, counts=counts,
+               same=same, n_shared=flat.numel(), ms=ms, peak=peak,
+               n_edges=n_edges, n_trained=len(named),
+               n_local=sum(p.numel() for _, p in named),
+               allreduce_ms=_tp_collectives_ms(fl, dev, mesh))
+    del fl, vg, opt, args, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_collectives_ms(fl, dev, mesh):
+    """The gloo collectives of one tp layer at the preset's sizes, timed
+    alone (mean of 5, host clock after a synchronise): forward the
+    row-parallel A linear's partial sums [N, D]; backward the gradients of
+    the layer input and the RTE vectors entering the column-parallel
+    projections ("f", one flat buffer); and once a step the adapters'
+    column gather ([N, D / tp] from each rank)."""
+    import torch.distributed as dist
+
+    from pyhgt_tpu_torch.parallel import mesh as pmesh
+
+    N = fl.layout.num_types * fl.layout.node_cap
+    D = fl.cfg.n_hid
+    L = fl.model.gnn.convs[0].rte_table.shape[0]
+    group = mesh.group("model")
+    sizes = {"[N, D] A-linear partial sums": N * D,
+             "[N, D] + [L, D] input gradients (f)": N * D + L * D}
+    out = {}
+    for what, numel in sizes.items():
+        x = torch.randn(numel, device=dev)
+        dist.all_reduce(x, group=group)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist.all_reduce(x, group=group)
+            _sync(dev)
+        out[what] = ((time.perf_counter() - t0) * 1e3 / 5, numel * 4)
+    cols = torch.randn(N, D // TP, device=dev)
+    pmesh.all_gather(cols, group)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pmesh.all_gather(cols, group)
+        _sync(dev)
+    out["[N, D / tp] adapter column gather (once a step)"] = (
+        (time.perf_counter() - t0) * 1e3 / 5, cols.numel() * 4 * TP)
+    return out
+
+
 def par_world(rank, world, ref_path, device, preset):
-    """The [gp], [dp] and [pp] checks on one rank of a 2-rank gloo world,
-    every rank on ``device`` (the card's one device)."""
+    """The [gp], [dp], [pp] and [tp] checks on one rank of a 2-rank gloo
+    world, every rank on ``device`` (the card's one device)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
@@ -3416,8 +3557,10 @@ def par_world(rank, world, ref_path, device, preset):
         dev = torch.device("cuda", dev.index or 0)
         torch.cuda.set_device(dev)
     ref = torch.load(ref_path, weights_only=True)
-    return {mode: _par_mode(rank, mode, ref, dev, preset)
-            for mode in ("gp", "dp", "pp")}
+    out = {mode: _par_mode(rank, mode, ref, dev, preset)
+           for mode in ("gp", "dp", "pp")}
+    out["tp"] = _tp_mode(rank, ref, dev, preset)
+    return out
 
 
 def par_expected(mode, n_layers=4, gp_windows=True):
@@ -3435,10 +3578,10 @@ def par_expected(mode, n_layers=4, gp_windows=True):
 
 
 def phase_parallel(dev, workdir, preset="bench", gp_windows=True):
-    """[gp], [dp], [pp]: the single-process reference on the card, then one
-    2-rank gloo world on cuda:0 (spawned once) running each mode's step at
-    the bench preset's full width. Returns launches per mode (summed over
-    the ranks) and the numbers for the log."""
+    """[gp], [dp], [pp], [tp]: the single-process reference on the card,
+    then one 2-rank gloo world on cuda:0 (spawned once) running each mode's
+    step at the bench preset's full width. Returns launches per mode
+    (summed over the ranks) and the numbers for the log."""
     from pyhgt_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
@@ -3483,9 +3626,46 @@ def phase_parallel(dev, workdir, preset="bench", gp_windows=True):
                                  "process")
         launches[mode] = {k: sum(r[mode]["counts"][k] for r in ranks)
                           for k in NO_LAUNCH}
+    launches["tp"] = tp_lines(ranks, single_ms, preset)
     ref_path.unlink()
     log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def tp_lines(ranks, single_ms, preset):
+    """The [tp] checks and lines of the parallel world's ranks; returns
+    the launches summed over the ranks."""
+    want = par_expected("tp", PRESETS_FL[preset].n_layers)
+    ok = True
+    for r, res in enumerate(ranks):
+        m = res["tp"]
+        rel = abs(m["loss"] - m["want_loss"]) / abs(m["want_loss"])
+        good = (rel <= PAR_LOSS_TOL and m["grad_err"] <= PAR_GRAD_TOL
+                and m["counts"] == want and m["same"])
+        ok = ok and good
+        log(f"[tp] rank {r}: loss {m['loss']:.6f} (single process "
+            f"{m['want_loss']:.6f}, rel {rel:.2e}, tol {PAR_LOSS_TOL:g}); "
+            f"{m['n_trained']} gradients ({m['n_local']} values on this "
+            f"rank) gathered over the model group, max err "
+            f"{m['grad_err']:.2e} of the tensor's max |ref| (tol "
+            f"{PAR_GRAD_TOL:g}); launches {m['counts']} (expected {want}); "
+            f"{m['n_shared']} replicated parameter values after the update "
+            f"equal on both ranks {m['same']}; step {m['ms']:.2f} ms "
+            f"({PAR_TIMED_STEPS} steps, {m['n_edges']} valid edges a step), "
+            f"peak {m['peak']:.2f} GiB {'ok' if good else 'FAIL'}")
+        log(f"[determinism] tp = {TP} rank {r}, the seed-0 batch and the "
+            f"same weights twice: loss {m['loss']:.6f} and {m['loss2']:.6f} "
+            f"(equal {m['loss'] == m['loss2']}); gathered gradients max err "
+            f"{m['self_err']:.2e} of each tensor's max |first|")
+    for what, (ms, nbytes) in ranks[0]["tp"]["allreduce_ms"].items():
+        log(f"[tp] gloo collective of {what} ({nbytes / 1e6:.1f} MB, CUDA "
+            f"tensors through the host) {ms:.2f} ms")
+    log(f"[tp] per-rank step against the single process's {single_ms:.2f} "
+        f"ms: two processes time-sharing one card, not a scaling result | "
+        f"{card_line()}")
+    if not ok:
+        raise AssertionError("[tp] a rank disagrees with the single process")
+    return {k: sum(r["tp"]["counts"][k] for r in ranks) for k in NO_LAUNCH}
 
 
 def add_mode_launches(rec, counter, mode_counts, total=True):
@@ -3553,17 +3733,29 @@ def check_run(tag, rc, lines, per, secs, cfg_line, expect):
     return {k: sum(c[k] for c in per) for k in NO_LAUNCH}
 
 
-def phase_gp_run(graph, workdir):
+def gp_run_argv(workdir):
+    return ["ogbn_mag", "--data", str(workdir / "graph"), "--model_dir",
+            str(workdir / "gp_run"), "--gp", str(GP), "--dist_backend",
+            "gloo", *SLICE_FLAGS, *GP_RUN_CUTS]
+
+
+def oag_run_argv(tag, workdir, flags):
+    return ["paper_field", "--data", str(workdir / "oag_graph"),
+            "--model_dir", str(workdir / tag), *flags, "--dist_backend",
+            "gloo", *SLICE_FLAGS, *OAG_PAR_CUTS]
+
+
+def phase_gp_run(graph, workdir, started=None):
     """``run ogbn_mag --gp 2`` under torchrun on the ogbn-mag proxy with the
     slice's flags (1 epoch of 2 x repeat 2, the test split at vr_num 1),
     per-rank launches asserted; then ``run serve`` of rank 0's checkpoint
-    answering 2 requests. Returns the launches of both."""
+    answering 2 requests (``started``: the run's future, when
+    :func:`start_runs` started it). Returns the launches of both."""
     cfg = served_config().replace(n_epoch=1, n_batch=2, vr_num=1, gp=GP)
     model_dir = workdir / "gp_run"
-    argv = ["ogbn_mag", "--data", str(workdir / "graph"), "--model_dir",
-            str(model_dir), "--gp", str(GP), "--dist_backend", "gloo",
-            *SLICE_FLAGS, *GP_RUN_CUTS]
-    rc, lines, per, secs = torchrun(GP, argv)
+    argv = gp_run_argv(workdir)
+    rc, lines, per, secs = (started.result() if started is not None
+                            else torchrun(GP, argv))
     L = cfg.n_layers
     steps = cfg.n_batch * cfg.repeat * cfg.n_epoch
     n_test = int(np.asarray(graph.aux["test_mask"]).sum())
@@ -3597,16 +3789,16 @@ def phase_gp_run(graph, workdir):
     return {k: counts[k] + served[k] for k in NO_LAUNCH}
 
 
-def phase_oag_parallel_run(tag, workdir, n, flags):
+def phase_oag_parallel_run(tag, workdir, n, flags, started=None):
     """``run paper_field`` under torchrun with ``n`` ranks and the parallel
     ``flags`` on the OAG proxy with the slice's flags (1 epoch of 2
-    batches), per-rank launches asserted. Returns the launches summed over
+    batches), per-rank launches asserted (``started``: the run's future,
+    when :func:`start_runs` started it). Returns the launches summed over
     the ranks."""
     cfg = PRESETS["paper_field"].replace(n_epoch=1, n_batch=2, repeat=1)
-    argv = ["paper_field", "--data", str(workdir / "oag_graph"),
-            "--model_dir", str(workdir / tag), *flags, "--dist_backend",
-            "gloo", *SLICE_FLAGS, *OAG_PAR_CUTS]
-    rc, lines, per, secs = torchrun(n, argv)
+    argv = oag_run_argv(tag, workdir, flags)
+    rc, lines, per, secs = (started.result() if started is not None
+                            else torchrun(n, argv))
     L = cfg.n_layers
     steps = cfg.n_batch * cfg.repeat * cfg.n_epoch
     forwards = cfg.n_epoch + OAG_TEST_BATCHES
@@ -3615,9 +3807,14 @@ def phase_oag_parallel_run(tag, workdir, n, flags):
         # a stage runs its L / pp layers on each of the PP_MICRO microbatches
         layer_steps = steps * PP_MICRO * (L // GP)
         per_step = OGBN_STEP
-    else:
+    elif "--gp" in flags:
         layer_steps = steps * L
         per_step = {"live_partials": 2}     # gp: no softmax kernel
+    else:
+        # dp and tp: every rank runs the single-device step's kernels (tp
+        # at D / tp columns and H / tp heads)
+        layer_steps = steps * L
+        per_step = OGBN_STEP
     return check_run(
         tag, rc, lines, per, secs,
         f"torchrun --nproc_per_node {n} -m pyhgt_tpu_torch.run "
@@ -3626,6 +3823,156 @@ def phase_oag_parallel_run(tag, workdir, n, flags):
         f"forwards on rank 0)",
         lambda r, c: run_expected(c, L, layer_steps, forwards, r == 0,
                                   per_step))
+
+
+def phase_tp_kernels(fl, dev, batch, ogbn_graph, oag, workdir):
+    """[tp-kernels]: the kernels at the width a tp = 2 rank gives them
+    (D / tp columns, H / tp heads; the sorted batch and its aux are every
+    model rank's): the bench batch at D 256 (its capped target aux: the
+    walks), an ``[ogbn]`` path item at D 256 / 4 heads and a paper-field
+    item at D 200 / 4 heads (the walks and the softmax partials), each held
+    against its plain version and timed beside the bound at those bytes.
+    Returns the record keys per kernel (``tp_bench_``, ``tp_ogbn_``,
+    ``tp_oag_``)."""
+    t0 = time.perf_counter()
+    c = fl.cfg
+    bench_cfg = PRESETS["ogbn_mag"].replace(n_hid=c.n_hid // TP,
+                                            n_heads=c.n_heads // TP)
+    out = {}
+
+    def merge(part):
+        for k, v in part.items():
+            out.setdefault(k, {}).update(v)
+
+    log(f"[tp-kernels] tp = {TP}: each model rank runs the edge stage on "
+        f"D / tp columns and H / tp heads of the same sorted batch")
+    merge(phase_path_kernels("tp_bench", dev, fl.sort(batch), bench_cfg,
+                             softmax=False))
+    item, _, cfg = ogbn_item(ogbn_graph)
+    merge(phase_path_kernels("tp_ogbn", dev, item.se, cfg.replace(
+        n_hid=cfg.n_hid // TP, n_heads=cfg.n_heads // TP)))
+    ocfg = oag_config("paper_field", workdir)
+    item = oag_field_item(ocfg, oag)[0]
+    merge(phase_path_kernels("tp_oag", dev, item.se, ocfg.replace(
+        n_hid=ocfg.n_hid // TP, n_heads=ocfg.n_heads // TP)))
+    log(f"[tp-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tp_resume_world(rank, world, workdir, cfg, device):
+    """A rank of ``[tp-run]``'s resumed epoch: ``run_node_classification``
+    (paper field) under ``cfg`` (tp = 2) with ``resume=True`` on
+    ``device``; returns its log, losses and launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    graph = CSRGraph.load_dir(str(Path(workdir) / "oag_graph"), mmap=True)
+    lines = []
+    reset_counts()
+    res = run_node_classification(
+        cfg, graph, label_meta=OAG_FIELD_LABEL, multi_label=True,
+        feature_fn=feature_oag, log=lines.append, resume=True,
+        device=dev)
+    _sync(dev)
+    return dict(lines=lines, counts=read_counts(),
+                losses=[h["loss"] for h in res["history"]])
+
+
+# the torchrun runs: (tag, ranks, flags); the gp run's argv is its own
+OAG_RUNS = (("pp-run", GP, ["--pp", str(GP)]),
+            ("dp-gp-run", 2 * GP, ["--dp", "2", "--gp", str(GP)]),
+            ("tp-run", TP, ["--tp", str(TP)]),
+            ("dp-tp-run", 2 * TP, ["--dp", "2", "--tp", str(TP)]))
+
+
+def start_runs(pool, workdir):
+    """Start the torchrun runs together on ``pool`` (each is host-bound, on
+    its loader and its processes' start): ``[gp-run]`` and the
+    ``OAG_RUNS``; returns their futures by tag. Their step times share the
+    card and the host with each other."""
+    log(f"[runs] {1 + len(OAG_RUNS)} torchrun runs start together ("
+        f"{', '.join(['gp-run'] + [t for t, _, _ in OAG_RUNS])}): their step "
+        f"times share the card and the host")
+    runs = {"gp-run": pool.submit(torchrun, GP, gp_run_argv(workdir))}
+    for tag, n, flags in OAG_RUNS:
+        runs[tag] = pool.submit(torchrun, n, oag_run_argv(tag, workdir, flags))
+    return runs
+
+
+def phase_tp_run(dev, oag, workdir, started=None):
+    """[tp-run]: ``run paper_field --tp 2`` under torchrun on the OAG proxy
+    (1 epoch of 2 steps); then its second epoch resumed from rank 0's
+    ``latest`` checkpoint by ``run_node_classification(resume=True)`` in a
+    2-rank gloo world on the card (the CLI has no resume flag, as in the
+    JAX package); then one process on the card loads that run's ``latest``
+    checkpoint (the whole model and AdamW state, gathered over the model
+    group) into the runner's model and answers one paper-field batch.
+    Every launch asserted; returns the launches of all three."""
+    from pyhgt_tpu_torch.parallel.distributed import spawn
+    from pyhgt_tpu_torch.train.checkpoint import load_checkpoint
+    from pyhgt_tpu_torch.train.step import make_eval_step
+
+    first = phase_oag_parallel_run("tp-run", workdir, TP, ["--tp", str(TP)],
+                                   started)
+    cfg = oag_config("paper_field", workdir).replace(
+        model_dir=str(workdir / "tp-run"), n_epoch=2, n_batch=2, repeat=1,
+        tp=TP)
+    t0 = time.perf_counter()
+    ranks = spawn(tp_resume_world, TP, str(workdir), cfg, str(dev),
+                  backend="gloo", threads=4)
+    secs = time.perf_counter() - t0
+    L = cfg.n_layers
+    again = {}
+    ok = any(l.startswith("resumed from") for l in ranks[0]["lines"])
+    for r, res in enumerate(ranks):
+        want = run_expected(res["counts"], L, cfg.n_batch * L,
+                            1 + OAG_TEST_BATCHES, r == 0, OGBN_STEP)
+        good = (res["counts"] == want and len(res["losses"]) == 1
+                and np.isfinite(res["losses"]).all())
+        ok = ok and good
+        log(f"[tp-run-resume] rank {r}: epoch losses {res['losses']}, "
+            f"launches {res['counts']} (expected {want}) "
+            f"{'ok' if good else 'FAIL'}")
+        again = {k: again.get(k, 0) + res["counts"][k] for k in NO_LAUNCH}
+    for line in ranks[0]["lines"]:
+        if line.startswith(("resumed", "epoch")):
+            log(f"[tp-run-resume]   {line}")
+    log(f"[tp-run-resume] run_node_classification(tp = {TP}, resume=True) "
+        f"in a {TP}-rank gloo world on {dev}: {secs:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[tp-run-resume] the tp run did not resume")
+    item, layout, em, task, _ = oag_field_item(cfg, oag)
+    model = node_classifier(cfg, layout, oag_in_dim(oag), task.n_classes,
+                            "paper", head_mode="seeds").to(dev)
+    path = workdir / "tp-run" / "paper_field_hgt_latest"
+    reset_counts()
+    state = load_checkpoint(str(path), TrainState(model, make_tx(
+        cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)))
+    sub = item.tb.sub
+    logp = make_eval_step(model)(
+        torch.as_tensor(sub.node_feat, device=dev),
+        torch.as_tensor(sub.node_mask, device=dev), item.se.to(dev),
+        em.to(dev))
+    _sync(dev)
+    served = read_counts()
+    n_moments = len(state.optimizer.inner.state)
+    finite = bool(torch.isfinite(logp).all())
+    want = scaled(PREDICTOR_FORWARD, L)
+    ok = (int(state.step) == 2 * cfg.n_batch and n_moments == len(
+        list(model.parameters())) and finite and served == want
+        and tuple(logp.shape) == (cfg.batch_size, task.n_classes))
+    log(f"[tp-run-load] one process on {dev} loads {path.name} of the tp "
+        f"run (step {int(state.step)}, AdamW state of {n_moments} "
+        f"parameters) into the paper-field model and answers one batch: "
+        f"log-probs {tuple(logp.shape)} finite {finite}; launches {served} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[tp-run-load] the tp checkpoint did not load "
+                             "in one process")
+    return {k: first[k] + again[k] + served[k] for k in NO_LAUNCH}
 
 
 def main():
@@ -3713,15 +4060,21 @@ def main():
         # the parallel modes: each run counted from 0 just before it ran,
         # on every rank
         par = phase_parallel(dev, workdir, gp_windows=gp_windows)
-        gp_run = phase_gp_run(pred.task.graph, workdir)
-        pp_run = phase_oag_parallel_run("pp-run", workdir, GP,
-                                        ["--pp", str(GP)])
-        dp_gp_run = phase_oag_parallel_run("dp-gp-run", workdir, 2 * GP,
-                                           ["--dp", "2", "--gp", str(GP)])
+        tp_kernels = phase_tp_kernels(fl, dev, batch, pred.task.graph, oag,
+                                      workdir)
+        with ThreadPoolExecutor(1 + len(OAG_RUNS)) as pool:
+            runs = start_runs(pool, workdir)
+            gp_run = phase_gp_run(pred.task.graph, workdir, runs["gp-run"])
+            pp_run, dp_gp_run, tp_run, dp_tp_run = (
+                phase_tp_run(dev, oag, workdir, runs[tag]) if tag == "tp-run"
+                else phase_oag_parallel_run(tag, workdir, n, flags, runs[tag])
+                for tag, n, flags in OAG_RUNS)
         mode_counts = {
             "gp": {k: par["gp"][k] + gp_run[k] for k in NO_LAUNCH},
             "dp": {k: par["dp"][k] + dp_gp_run[k] for k in NO_LAUNCH},
-            "pp": {k: par["pp"][k] + pp_run[k] for k in NO_LAUNCH}}
+            "pp": {k: par["pp"][k] + pp_run[k] for k in NO_LAUNCH},
+            "tp": {k: par["tp"][k] + tp_run[k] + dp_tp_run[k]
+                   for k in NO_LAUNCH}}
         # the OAG path's launches: every run above, each counted from 0
         # just before it ran
         oag_counts = {k: sum(c[k] for c in (
@@ -3742,6 +4095,7 @@ def main():
                           + single["launches_dense_hgt"])
     add_mode_launches(single, "live_partials", mode_counts)
     single.update(gp_kernels["live_partials"])
+    single.update(tp_kernels["live_partials"])
     single.update(oag_kernels["live_partials"])
     single.update(ogbn_kernels["live_partials"])
     single.update({f"hard_{k}": v for k, v in hard["live_partials"].items()})
@@ -3756,6 +4110,7 @@ def main():
                            + rec["launches_oag"] + rec["launches_dense_hgt"])
         add_mode_launches(rec, f"pair_{kind}", mode_counts)
         rec.update(gp_kernels[f"pair_{kind}"])
+        rec.update(tp_kernels.get(f"pair_{kind}", {}))
         rec.update(oag_kernels.get(f"pair_{kind}", {}))
         rec.update(ogbn_kernels.get(f"pair_{kind}", {}))
         if kind == "window":
@@ -3781,9 +4136,11 @@ def main():
                                     + rec["launches_dense_hgt"])
                 rec.update(oag_kernels["softmax"])
                 rec.update(ogbn_kernels["softmax"])
+                rec.update(tp_kernels["softmax"])
             elif counter.startswith("slab_"):
                 rec.update(oag_kernels.get(counter, {}))
                 rec.update(ogbn_kernels.get(counter, {}))
+                rec.update(tp_kernels.get(counter, {}))
                 rec.update({f"hard_{k}": v for k, v in hard["slab"].items()})
         rec["launches"] += sum(rec[f"launches_{m}"] for m in mode_counts)
         if not rec["launches"]:

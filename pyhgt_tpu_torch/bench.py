@@ -39,8 +39,12 @@ import torch
 from pyhgt_tpu_torch.flagship import build_flagship, synth_flagship_batch
 from pyhgt_tpu_torch.ops.sorted_hgt import EDGE_BWD
 from pyhgt_tpu_torch.parallel import pipeline as ppl
-from pyhgt_tpu_torch.parallel.mesh import GRAPH_AXIS, make_mesh
-from pyhgt_tpu_torch.parallel.spmd import dp_value_and_grad, make_step
+from pyhgt_tpu_torch.parallel.mesh import GRAPH_AXIS, make_mesh, shard_model
+from pyhgt_tpu_torch.parallel.spmd import (
+    dp_value_and_grad,
+    make_step,
+    make_tp_norm,
+)
 from pyhgt_tpu_torch.train.optim import cosine_schedule, make_optimizer
 from pyhgt_tpu_torch.train.step import TrainState, make_train_step
 
@@ -67,7 +71,10 @@ def parallel_trainer(fl, mode: str, n: int, n_micro: int = 0):
     batches of seeds 0..M-1), ``optimizer`` the bench's over the
     parameters this rank trains, and ``n_edges`` the valid edges a step
     trains on. The world must have ``n`` ranks and ``fl`` a model built
-    with ``graph_axis`` under gp."""
+    with ``graph_axis`` under gp. ``"tp"`` (no flag of the bench: the root
+    harness has no tp mode) replaces ``fl.model`` by this rank's sharded
+    copy, trained on the batch of seed 0 with the clip's norm read across
+    the model group."""
     if mode == "pp":
         M = n_micro or 2 * n
         mesh = ppl.make_pipe_mesh(n)
@@ -81,6 +88,16 @@ def parallel_trainer(fl, mode: str, n: int, n_micro: int = 0):
         optimizer = _optimizer(loss_fn.stage.named_parameters())
         return (ppl.make_pp_value_and_grad(loss_fn, optimizer, mesh),
                 optimizer, (fl.dropout_gen, micro), n_edges)
+    if mode == "tp":
+        mesh = make_mesh(n_data=1, n_model=n)
+        fl.model = shard_model(fl.model, mesh)
+        batch, labels = synth_flagship_batch(fl, seed=0)
+        named = list(fl.model.named_parameters())
+        optimizer = _optimizer(named)
+        optimizer.norm_fn = make_tp_norm(named, mesh)
+        return (dp_value_and_grad(fl.loss, optimizer.params, mesh), optimizer,
+                fl.to_device(batch, fl.sort(batch), labels),
+                int(batch.edge_mask.sum()))
     mesh = (make_mesh(n_data=1, n_graph=n) if mode == "gp"
             else make_mesh(n_data=n))
     seed = mesh.index("data")

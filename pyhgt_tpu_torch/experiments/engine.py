@@ -4,8 +4,8 @@ Counterpart of :mod:`pyhgt_tpu.experiments.engine`: ``make_sampler``,
 ``make_layout``, ``gnn_kwargs``, ``make_tx``, ``_infer_in_dim``, the
 producer-side train item (``_Item``, ``_make_producer`` with its graph-axis
 partition, ``_stack_items``), ``make_exec`` with its data-parallel,
-edge-partitioned and pipelined branches (``_pp_parts``, ``_make_pp_exec``;
-tensor parallelism is not ported), ``_warn_overflow``, the OAG split ``OAG_SPLITS``, ``_probe_in_dim``, the
+edge-partitioned, tensor-parallel and pipelined branches (``_exec_parts``,
+``_make_pp_exec``), ``_warn_overflow``, the OAG split ``OAG_SPLITS``, ``_probe_in_dim``, the
 three runners :func:`run_node_classification` (paper-field / paper-venue),
 :func:`run_author_disambiguation` and :func:`run_ogbn`, and the standalone
 checkpoint evaluation :func:`evaluate_ogbn`; plus ``node_classifier`` and
@@ -22,13 +22,17 @@ variance-reduced protocol (``eval_ogbn_mag.py:128-179``). Sampling and the
 host sort overlap training through
 :class:`~pyhgt_tpu_torch.train.loader.PrefetchLoader`.
 
-Under ``dp``, ``gp`` or ``pp`` above 1 each rank is one process of a
-``torch.distributed`` world (``python -m pyhgt_tpu_torch.run`` under
-``torchrun``): every rank of a graph or pipe group trains on the same
-items, which the group's first rank samples and sends; data ranks sample
-their own. Only rank 0 evaluates (the single-device forward of the
-parameters, a pipeline's gathered first), writes checkpoints and the
-metrics jsonl, and logs; the other ranks receive its scores. One epoch loop
+Under ``dp``, ``tp``, ``gp`` or ``pp`` above 1 each rank is one process
+of a ``torch.distributed`` world (``python -m pyhgt_tpu_torch.run`` under
+``torchrun``): every rank of a model, graph or pipe group trains on the
+same items, which the group's first rank samples and sends; data ranks
+sample their own. The layout is rank 0's, sent to every rank (calibration
+draws from an unseeded generator). Only rank 0 evaluates (the
+single-device forward of the runner's whole model, into which the spread
+parameters are gathered first), writes checkpoints (the whole model and
+optimizer, which a single process loads) and the metrics jsonl, and logs;
+the other ranks receive its scores. A resume restores the whole state and
+hands each rank its part. One epoch loop
 (:func:`_fit`, over :func:`_train_epoch`) serves the three runners, and
 :func:`link_setup` builds the link task and model for the runner and for
 serving.
@@ -59,14 +63,20 @@ from pyhgt_tpu_torch.parallel.edge_partition import (
     EdgeShard,
     partition_sorted,
 )
+from pyhgt_tpu_torch.parallel import mesh as pmesh
 from pyhgt_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     GRAPH_AXIS,
+    MODEL_AXIS,
     PIPE_AXIS,
     make_mesh,
 )
 from pyhgt_tpu_torch.parallel import pipeline as ppl
-from pyhgt_tpu_torch.parallel.spmd import make_dp_train_step, make_gp_train_step
+from pyhgt_tpu_torch.parallel.spmd import (
+    make_dp_train_step,
+    make_gp_train_step,
+    make_tp_train_step,
+)
 from pyhgt_tpu_torch.sampling.batch import BatchLayout
 from pyhgt_tpu_torch.sampling.hgsampler import HGSampler
 from pyhgt_tpu_torch.sampling.sorted_batch import (
@@ -92,6 +102,8 @@ from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import (
     BestCheckpointPolicy,
     load_checkpoint,
+    load_named_optimizer_state,
+    named_optimizer_state,
     save_checkpoint,
 )
 from pyhgt_tpu_torch.train.loader import PrefetchLoader
@@ -120,14 +132,40 @@ OAG_SPLITS = {
 
 
 def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise on a configuration the port cannot run yet (tensor parallelism
-    and bf16 weight banks) instead of running another one."""
-    if cfg.tp > 1:
-        raise NotImplementedError(
-            f"tp = {cfg.tp}: tensor parallelism (head-sharded parameter "
-            "banks) is the next slice of the port")
+    """Raise on a configuration the port cannot run: the JAX package's
+    refusals of tp with gp or pp (``ValueError``, its reasons), and the
+    knobs not ported yet, bf16 weight banks and rematerialization
+    (``NotImplementedError``), instead of running another one."""
+    if cfg.tp > 1 and cfg.gp > 1:
+        # the JAX package's design decision (pyhgt_tpu/experiments/engine.py)
+        raise ValueError(
+            "gp>1 does not compose with tp>1 by design: tp shards "
+            "parameter memory (~1.5% of HBM at reference scale) while gp "
+            "shards the per-edge tensors that actually bind; use dp x gp "
+            "(or dp x tp without gp)")
+    if cfg.tp > 1 and cfg.pp > 1:
+        raise ValueError("pp composes with dp only (pp x tp / pp x gp are "
+                         "not wired)")
     if cfg.param_bf16:
         raise NotImplementedError("param_bf16 is not ported yet")
+    if cfg.remat:
+        raise NotImplementedError("remat (rematerialization of the "
+                                  "attention core) is not ported yet")
+
+
+def shared_layout(make: Callable[[], BatchLayout]) -> BatchLayout:
+    """``make()`` on rank 0, sent to every rank of a parallel run (the
+    layout's calibration draws from an unseeded generator, and every rank
+    of a group must pad to the same shapes); ``make()`` alone on one
+    process."""
+    rank, n = world()
+    if n == 1:
+        return make()
+    import torch.distributed as dist
+
+    box = [make() if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def make_sampler(cfg: ExperimentConfig, graph: CSRGraph, log=print):
@@ -179,8 +217,10 @@ def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
     """:class:`~pyhgt_tpu_torch.models.model.GNN`'s arguments: any conv of
     the JAX package (``conv_name``) on either edge path (``edge_impl``),
     edge-partitioned under ``gp > 1`` (``graph_axis``, ``gp_overlap``).
-    The JAX package's ``remat`` has no counterpart here; an unknown conv
-    name raises when the model is built."""
+    ``remat`` is refused (:func:`check_ported`); an unknown conv name
+    raises when the model is built. Tensor parallelism is not a model
+    argument: :func:`make_exec` shards a built model
+    (:func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`)."""
     return dict(
         in_dim=in_dim,
         n_hid=cfg.n_hid,
@@ -387,12 +427,15 @@ def _unstack_item(item):
     return [_Item(tb, se, 0, 0) for tb, se in zip(item.tb, item.se)]
 
 
-def _pp_parts(cfg: ExperimentConfig, em, head_loss, steps_per_epoch: int):
-    """The task side of :func:`make_exec`'s pp branch: the task head's
-    loss of one microbatch, ``head_loss(model, h_out, *labels)``, the
-    ``EdgeStaticMeta`` on the device, the layer count and a rebuilder of
-    the optimizer over a stage's parameters."""
-    return dict(head_loss=head_loss, em=em, n_layers=cfg.n_layers,
+def _exec_parts(cfg: ExperimentConfig, em, head_loss, loss_for,
+                steps_per_epoch: int):
+    """The task side of :func:`make_exec`'s tp and pp branches: the task
+    head's loss of one microbatch, ``head_loss(model, h_out, *labels)``
+    (pp), the task's loss of another model, ``loss_for(model)`` (tp: the
+    sharded copy), the ``EdgeStaticMeta`` on the device, the layer count
+    and a rebuilder of the optimizer over a part of the parameters."""
+    return dict(head_loss=head_loss, loss_for=loss_for, em=em,
+                n_layers=cfg.n_layers,
                 remake_tx=lambda named: make_tx(cfg, named, steps_per_epoch))
 
 
@@ -417,38 +460,65 @@ def _make_pp_exec(cfg: ExperimentConfig, pp_parts, state, dp: int, pp: int):
     return step, loader_kw, state, mesh
 
 
-def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, pp_parts=None):
-    """The train step for ``cfg``, honoring ``dp`` / ``gp`` / ``pp`` over
-    the ranks of the ``torch.distributed`` world (one process per rank):
+def _make_tp_exec(cfg: ExperimentConfig, parts, state, dp: int, tp: int):
+    """The tp branch of :func:`make_exec`: a ``(data, model)`` mesh, this
+    rank's sharded copy of the model
+    (:func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`) with the task's
+    loss and an optimizer over it, and every model rank of a data row fed
+    the same items (the row's first rank samples and sends them)."""
+    mesh = make_mesh(n_data=dp, n_model=tp)
+    model = pmesh.shard_model(state.model, mesh)
+    named = list(model.named_parameters())
+    tx = parts["remake_tx"](named)
+    step = make_tp_train_step(parts["loss_for"](model), tx, named, mesh)
+    loader_kw = dict(seed=cfg.seed + mesh.index(DATA_AXIS),
+                     group=mesh.group(MODEL_AXIS),
+                     src=mesh.members(MODEL_AXIS)[0])
+    return step, loader_kw, TrainState(model, tx), mesh
+
+
+def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, parts=None):
+    """The train step for ``cfg``, honoring ``dp`` / ``tp`` / ``gp`` /
+    ``pp`` over the ranks of the ``torch.distributed`` world (one process
+    per rank):
 
     - dp > 1: each data rank runs the unbatched loss on its own item; the
       loss and gradients are averaged over the data group before the clip
       and the update (:func:`~pyhgt_tpu_torch.parallel.spmd.make_dp_train_step`);
+    - tp > 1: Megatron-style tensor parallelism over the model group, the
+      JAX package's head-sharded parameter banks
+      (:func:`~pyhgt_tpu_torch.parallel.mesh.param_shardings`); each model
+      rank trains its slices of a sharded copy of ``state.model`` on the
+      same items; composes with dp, not with gp or pp
+      (:func:`check_ported`);
     - gp > 1: each batch's edges split over the graph group, every rank
       training on its shard (:mod:`pyhgt_tpu_torch.parallel.edge_partition`);
       composes with dp;
     - pp > 1: the conv stack staged over a pipe group, ``cfg.pp_micro``
       (default 2 * pp) microbatches per step on the GPipe schedule
-      (:mod:`pyhgt_tpu_torch.parallel.pipeline`), with ``pp_parts`` from
-      the runner (:func:`_pp_parts`); composes with dp.
+      (:mod:`pyhgt_tpu_torch.parallel.pipeline`); composes with dp.
 
-    Returns ``(step, loader_kwargs, state, mesh)`` as the JAX package does:
-    the loader's feed of this rank, the state (under pp its optimizer over
-    this stage's parameters), and the :class:`~pyhgt_tpu_torch.parallel.mesh.Mesh`
-    (None on one device). ``tp > 1`` raises (:func:`check_ported`)."""
+    ``parts`` (:func:`_exec_parts`, from the runner) carries what the tp
+    and pp branches rebuild. Returns ``(step, loader_kwargs, state, mesh)``
+    as the JAX package does: the loader's feed of this rank, the state
+    (under tp the sharded copy and its optimizer, under pp the optimizer
+    over this stage's parameters), and the
+    :class:`~pyhgt_tpu_torch.parallel.mesh.Mesh` (None on one device)."""
     check_ported(cfg)
-    dp, gp, pp = max(cfg.dp, 1), max(cfg.gp, 1), max(cfg.pp, 1)
-    if dp == gp == pp == 1:
+    dp, tp = max(cfg.dp, 1), max(cfg.tp, 1)
+    gp, pp = max(cfg.gp, 1), max(cfg.pp, 1)
+    if dp == tp == gp == pp == 1:
         return make_train_step(loss_fn, tx), {}, state, None
+    if (pp > 1 or tp > 1) and parts is None:
+        raise ValueError("tp or pp > 1 needs the task's parts "
+                         "(_exec_parts: this runner does not support them)")
     if pp > 1:
         if gp > 1:
             raise ValueError("pp composes with dp only (pp x gp is not "
                              "wired)")
-        if pp_parts is None:
-            raise ValueError("cfg.pp > 1 needs the task's pipeline "
-                             "decomposition (this runner does not support "
-                             "pipeline parallelism)")
-        return _make_pp_exec(cfg, pp_parts, state, dp=dp, pp=pp)
+        return _make_pp_exec(cfg, parts, state, dp=dp, pp=pp)
+    if tp > 1:
+        return _make_tp_exec(cfg, parts, state, dp=dp, tp=tp)
     mesh = make_mesh(n_data=dp, n_model=1, n_graph=gp)
     loader_kw = dict(seed=cfg.seed + mesh.index(DATA_AXIS))
     if gp > 1:
@@ -463,6 +533,67 @@ def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, pp_parts=None):
     else:
         step = make_dp_train_step(loss_fn, tx, mesh)
     return step, loader_kw, state, mesh
+
+
+def export_state(state: TrainState, full: TrainState, mesh) -> None:
+    """Collect a parallel run's ``state`` into ``full`` (the runner's whole
+    model and its optimizer over every parameter) on rank 0, for its
+    evaluation and checkpoints: under tp the sharded model's parameters
+    and optimizer moments joined along each parameter's split axis, under
+    pp the stages' layers and their optimizer state; the step count.
+    Every rank calls it; off those modes ``state`` is ``full``."""
+    if state is full or mesh is None:
+        return
+    if PIPE_AXIS in mesh.axes:
+        stage = ppl.Stage(state.model, mesh)
+        ppl.gather_pipeline_params(state.model, mesh)
+        moments = ppl.gather_pipeline_optimizer_state(state.optimizer, stage,
+                                                      mesh)
+        params = None
+    else:
+        params = pmesh.gather_params(state.model, mesh)
+        named = list(state.model.named_parameters())
+        moments = _per_moment(named_optimizer_state(state.optimizer, named),
+                              pmesh.param_shardings(named),
+                              lambda t, ax: pmesh.join_along(t, ax, mesh))
+    if world()[0] != 0:
+        return
+    if params is not None:
+        full.model.load_state_dict(params, strict=True)
+    load_named_optimizer_state(full.optimizer,
+                               list(full.model.named_parameters()), moments)
+    full.optimizer.count = state.step
+
+
+def restore_state(full: TrainState, state: TrainState, mesh) -> None:
+    """The inverse of :func:`export_state` on every rank: ``full`` holds a
+    whole restored checkpoint, and this rank's ``state`` takes its part:
+    under tp its slices of each parameter and moment, under pp its
+    stage's optimizer state (every rank holds the whole model there); the
+    step count."""
+    if state is full:
+        return
+    by_name = named_optimizer_state(full.optimizer,
+                                    list(full.model.named_parameters()))
+    if PIPE_AXIS in mesh.axes:
+        named = ppl.Stage(state.model, mesh).named_parameters()
+    else:
+        named = list(state.model.named_parameters())
+        state.model.load_state_dict(
+            pmesh.shard_params(full.model.state_dict(), mesh), strict=True)
+        by_name = _per_moment(by_name, pmesh.param_shardings(named),
+                              lambda t, ax: pmesh.split_along(t, ax, mesh))
+    load_named_optimizer_state(state.optimizer, named, by_name)
+    state.optimizer.count = full.optimizer.count
+
+
+def _per_moment(by_name, axes, fn):
+    """``by_name`` (per-parameter optimizer state) with ``fn(tensor, axis)``
+    applied to each moment, a tensor of its parameter's shape split on the
+    parameter's ``axes[name]``; a 0-d ``step`` is kept."""
+    return {n: {k: (fn(v, axes[n]) if torch.is_tensor(v) and v.dim() else v)
+                for k, v in st.items()}
+            for n, st in by_name.items()}
 
 
 def _warn_overflow(log, overflow: int, edges: int, threshold: float = 0.01):
@@ -501,19 +632,22 @@ def _ms_between(a, b) -> float:
     return a.elapsed_time(b)
 
 
-def _restore_latest(cfg: ExperimentConfig, state: TrainState, resume: bool,
-                    log):
+def _restore_latest(cfg: ExperimentConfig, state: TrainState,
+                    full: TrainState, mesh, resume: bool, log):
     """The best-valid policy and the ``latest`` path of ``cfg``'s run, and,
-    under ``resume``, ``state`` restored from ``latest`` when it exists.
-    Returns ``(state, start_epoch, policy, latest_path)``."""
+    under ``resume``, the whole state restored from ``latest`` when it
+    exists: into ``full`` (the runner's model and optimizer), then this
+    rank's part of it into ``state`` (:func:`restore_state`). Returns
+    ``(start_epoch, policy, latest_path)``."""
     prefix = os.path.join(cfg.model_dir, f"{cfg.task_name}_{cfg.conv_name}")
     latest_path = f"{prefix}_latest"
     start_epoch = 0
     if resume and os.path.exists(latest_path):
-        state = load_checkpoint(latest_path, state)
+        load_checkpoint(latest_path, full)
+        restore_state(full, state, mesh)
         start_epoch = int(state.step) // (cfg.n_batch * cfg.repeat)
         log(f"resumed from {latest_path} at epoch {start_epoch}")
-    return state, start_epoch, BestCheckpointPolicy(prefix), latest_path
+    return start_epoch, BestCheckpointPolicy(prefix), latest_path
 
 
 def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
@@ -595,8 +729,8 @@ def _pp_step_args(step_args, mesh):
 
 
 def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
-         validate, state, start_epoch: int, ckpt, latest_path: str, dev,
-         log, metrics=None, mesh=None) -> list:
+         validate, state, full, start_epoch: int, ckpt, latest_path: str,
+         dev, log, metrics=None, mesh=None) -> list:
     """The runners' epoch loop, from ``start_epoch`` to ``cfg.n_epoch``:
     :func:`_train_epoch` on a :class:`PrefetchLoader` over ``producer``,
     then ``validate()`` (the epoch's validation fields, a dict whose first
@@ -604,14 +738,15 @@ def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
     the history record (also to ``metrics`` when given), the overflow
     warning and the epoch's log line. Returns the history.
 
-    On a ``mesh`` (the parallel modes), rank 0 alone validates and writes
-    the checkpoints, a pipeline's stages gathered on it first
-    (:func:`~pyhgt_tpu_torch.parallel.pipeline.gather_pipeline_params`),
-    and every rank gets its scores."""
+    On a ``mesh`` (the parallel modes), the spread state is gathered into
+    ``full`` on rank 0 (:func:`export_state`), which alone validates (the
+    runner's ``validate`` reads ``full.model``) and writes the whole
+    checkpoints; every rank gets its scores. The dropout generator folds
+    in the data index only, so the ranks of a model, graph or pipe group
+    draw the same masks."""
     history = []
     gen = torch.Generator(device=dev)
     lead = world()[0] == 0
-    piped = mesh is not None and PIPE_AXIS in mesh.axes
     fold = ((mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)) if mesh is not None
             else (1, 0))
     step_args = _pp_step_args(step_args, mesh)
@@ -621,15 +756,12 @@ def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
             t0 = time.time()
             train_loss, edges, overflow, timing = _train_epoch(
                 step, it, cfg, epoch, gen, dev, step_args, fold)
-            if piped:
-                ppl.gather_pipeline_params(state.model, mesh)
+            export_state(state, full, mesh)
             valid = best = None
             if lead:
-                saved = (ppl.ExportedState(state.model, state.step) if piped
-                         else state)
                 valid = validate()
-                best = ckpt.update(next(iter(valid.values())), saved)
-                save_checkpoint(latest_path, saved)  # crash-restart point
+                best = ckpt.update(next(iter(valid.values())), full)
+                save_checkpoint(latest_path, full)  # crash-restart point
             valid, best = _from_lead((valid, best), mesh)
             if best and not lead:   # the same best score on every rank
                 ckpt.best = float(next(iter(valid.values())))
@@ -725,8 +857,9 @@ def run_node_classification(
     ``valid_ndcg``, ``valid_mrr``, ``best``, ``secs``, ``edges_per_s``,
     ``edges``, ``edges_dropped``) and the step timing of
     :func:`_train_epoch` (``step_ms``, ``step_ms_max``, ``wait_ms``).
-    ``cfg.dp`` / ``gp`` / ``pp`` above 1 run the parallel modes
-    (:func:`make_exec`) on this rank of the process group."""
+    ``cfg.dp`` / ``tp`` / ``gp`` / ``pp`` above 1 run the parallel modes
+    (:func:`make_exec`) on this rank of the process group; the returned
+    ``state`` is the whole model and optimizer, current on rank 0."""
     dev = resolve_device(device)
     log = _lead_log(log)
     splits = splits or OAG_SPLITS
@@ -744,10 +877,10 @@ def run_node_classification(
     valid_pairs = subsample_pairs(pairs["valid"], cfg.data_percentage, cfg.seed)
     test_pairs = pairs["test"]
     _crng = np.random.default_rng(cfg.seed + 7)
-    layout = make_layout(
+    layout = shared_layout(lambda: make_layout(
         cfg, graph, sampler=sampler,
         seeds_fn=lambda: task.build_seeds(train_pairs, _crng)[0],
-    )
+    ))
     task.layout = layout
     log(f"layout: node cap {layout.node_cap}, {layout.num_edges} padded "
         f"edges in {len(layout.blocks)} blocks; {task.n_classes} classes")
@@ -758,19 +891,19 @@ def run_node_classification(
         task.n_classes, target_type, head_mode="seeds").to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    pp_parts = None
-    if cfg.pp > 1:
-        from pyhgt_tpu_torch.train.step import kl_div_loss, nll_loss
+    from pyhgt_tpu_torch.train.step import kl_div_loss, nll_loss
 
-        def head_loss(model_, h, labels, lmask):
-            logp = model_.head(h)
-            return (kl_div_loss(logp, labels, mask=lmask) if multi_label
-                    else nll_loss(logp, labels, mask=lmask))
+    def head_loss(model_, h, labels, lmask):
+        logp = model_.head(h)
+        return (kl_div_loss(logp, labels, mask=lmask) if multi_label
+                else nll_loss(logp, labels, mask=lmask))
 
-        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    parts = _exec_parts(cfg, em_dev, head_loss,
+                        lambda m: task.make_loss_fn(m, em_dev),
+                        cfg.n_batch * cfg.repeat)
+    full = TrainState(model, tx)
     step, loader_kw, state, mesh = make_exec(
-        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx),
-        pp_parts=pp_parts)
+        cfg, parts["loss_for"](model), tx, full, parts)
     fwd = make_eval_step(model)
 
     def eval_metrics(pairs_, split_, rng):
@@ -786,8 +919,8 @@ def run_node_classification(
             rel[np.arange(len(live)), np.asarray(tb.labels)] = 1
         return ranking_metrics(logp[live], rel[live])
 
-    state, start_epoch, ckpt, latest_path = _restore_latest(
-        cfg, state, resume, log)
+    start_epoch, ckpt, latest_path = _restore_latest(
+        cfg, state, full, mesh, resume, log)
     producer = _producer_for(
         cfg, task.make_sample_fn(train_pairs, splits["train"]), layout, em)
     metrics = _metrics_logger(cfg)
@@ -798,15 +931,15 @@ def run_node_classification(
         return dict(valid_ndcg=ndcg, valid_mrr=mrr)
 
     history = _fit(cfg, producer, step, _label_step_args(dev, model),
-                   loader_kw, validate, state, start_epoch, ckpt, latest_path,
-                   dev, log, metrics, mesh)
+                   loader_kw, validate, state, full, start_epoch, ckpt,
+                   latest_path, dev, log, metrics, mesh)
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, test_pairs,
                                         splits["test"], cfg, log, mesh)
     metrics.log("test", ndcg=test_ndcg, mrr=test_mrr)
     metrics.close()
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
-                best_valid=ckpt.best, state=state)
+                best_valid=ckpt.best, state=full)
 
 
 # ---------------------------------------------------------------------------
@@ -833,12 +966,12 @@ def link_setup(
         write_meta=write_meta, batch_size=cfg.batch_size, max_group=max_group,
     )
     _crng = np.random.default_rng(cfg.seed + 7)
-    task.layout = make_layout(
+    task.layout = shared_layout(lambda: make_layout(
         cfg, graph, sampler=sampler,
         seeds_fn=lambda: task.build_seeds(
             pairs["train"], splits["train"], _crng
         )[0],
-    )
+    ))
     tb0 = task.sample(pairs["train"], splits["train"],
                       np.random.default_rng(cfg.seed))
     model = link_matcher(cfg, task.layout, _infer_in_dim(tb0),
@@ -880,20 +1013,18 @@ def run_author_disambiguation(
     model = model.to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    pp_parts = None
-    if cfg.pp > 1:
-        from pyhgt_tpu_torch.tasks.link_prediction import (
-            grouped_listwise_loss,
-        )
+    from pyhgt_tpu_torch.tasks.link_prediction import grouped_listwise_loss
 
-        def head_loss(model_, h, cand_idx, cand_mask, query_mask):
-            return grouped_listwise_loss(model_.head(h, cand_idx), cand_mask,
-                                         query_mask)
+    def head_loss(model_, h, cand_idx, cand_mask, query_mask):
+        return grouped_listwise_loss(model_.head(h, cand_idx), cand_mask,
+                                     query_mask)
 
-        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    parts = _exec_parts(cfg, em_dev, head_loss,
+                        lambda m: make_link_loss_fn(m, em_dev),
+                        cfg.n_batch * cfg.repeat)
+    full = TrainState(model, tx)
     step, loader_kw, state, mesh = make_exec(
-        cfg, make_link_loss_fn(model, em_dev), tx, TrainState(model, tx),
-        pp_parts=pp_parts)
+        cfg, parts["loss_for"](model), tx, full, parts)
     score_fn = make_eval_step(model)
     t = _as_dev(dev)
 
@@ -909,8 +1040,8 @@ def run_author_disambiguation(
         scores = np.where(tb.cand_mask, scores, -np.inf)
         return ranking_metrics(scores[live], rel[live])
 
-    state, start_epoch, ckpt, latest_path = _restore_latest(
-        cfg, state, resume, log)
+    start_epoch, ckpt, latest_path = _restore_latest(
+        cfg, state, full, mesh, resume, log)
     producer = _producer_for(
         cfg, task.make_sample_fn(pairs["train"], splits["train"]), layout, em)
     rng_eval = np.random.default_rng(cfg.seed + 1)
@@ -926,13 +1057,13 @@ def run_author_disambiguation(
                 raw_edges(model, sub, dev))
 
     history = _fit(cfg, producer, step, step_args, loader_kw, validate,
-                   state, start_epoch, ckpt, latest_path, dev, log, None,
-                   mesh)
+                   state, full, start_epoch, ckpt, latest_path, dev, log,
+                   None, mesh)
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, pairs["test"],
                                         splits["test"], cfg, log, mesh)
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
-                best_valid=ckpt.best, state=state)
+                best_valid=ckpt.best, state=full)
 
 
 # ---------------------------------------------------------------------------
@@ -966,7 +1097,8 @@ def run_ogbn(
                             replace=False)
         return {"paper": np.stack([pick, _years[pick]], axis=1)}
 
-    layout = make_layout(cfg, graph, sampler=sampler, seeds_fn=_cal_seeds)
+    layout = shared_layout(lambda: make_layout(
+        cfg, graph, sampler=sampler, seeds_fn=_cal_seeds))
     log(f"layout: node cap {layout.node_cap}, {layout.num_edges} padded "
         f"edges in {len(layout.blocks)} blocks")
     em = EdgeStaticMeta.from_layout(layout)
@@ -980,21 +1112,21 @@ def run_ogbn(
                             task.target_type).to(dev)
     log(f"model parameters: {get_n_params(model):,}")
     tx = make_tx(cfg, model.named_parameters(), cfg.n_batch * cfg.repeat)
-    pp_parts = None
-    if cfg.pp > 1:
-        from pyhgt_tpu_torch.train.step import nll_loss
+    from pyhgt_tpu_torch.train.step import nll_loss
 
-        def head_loss(model_, h, labels, lmask):
-            return nll_loss(model_.head(h), labels, mask=lmask)
+    def head_loss(model_, h, labels, lmask):
+        return nll_loss(model_.head(h), labels, mask=lmask)
 
-        pp_parts = _pp_parts(cfg, em_dev, head_loss, cfg.n_batch * cfg.repeat)
+    parts = _exec_parts(cfg, em_dev, head_loss,
+                        lambda m: task.make_loss_fn(m, em_dev),
+                        cfg.n_batch * cfg.repeat)
+    full = TrainState(model, tx)
     step, loader_kw, state, mesh = make_exec(
-        cfg, task.make_loss_fn(model, em_dev), tx, TrainState(model, tx),
-        pp_parts=pp_parts)
+        cfg, parts["loss_for"](model), tx, full, parts)
     fwd = make_eval_step(model)
 
-    state, start_epoch, ckpt, latest_path = _restore_latest(
-        cfg, state, resume, log)
+    start_epoch, ckpt, latest_path = _restore_latest(
+        cfg, state, full, mesh, resume, log)
     metrics = _metrics_logger(cfg)
     producer = _producer_for(cfg, task.make_sample_fn("train"), layout, em)
     rng_eval = np.random.default_rng(cfg.seed + 1)
@@ -1019,8 +1151,8 @@ def run_ogbn(
         return dict(valid_acc=float(np.mean(accs)))
 
     history = _fit(cfg, producer, step, _label_step_args(dev, model),
-                   loader_kw, validate, state, start_epoch, ckpt, latest_path,
-                   dev, log, metrics, mesh)
+                   loader_kw, validate, state, full, start_epoch, ckpt,
+                   latest_path, dev, log, metrics, mesh)
 
     # final multi-sample eval (eval_ogbn_mag.py:128-179), on rank 0
     def eval_forward(params, nf, es, et, dt, emk, nmk):
@@ -1032,7 +1164,7 @@ def run_ogbn(
     vr = None
     if world()[0] == 0:
         vr = multi_sample_eval(
-            eval_forward, state.model, task, split="test",
+            eval_forward, model, task, split="test",
             batch_size=cfg.batch_size,
             vr_num=cfg.vr_num if eval_mode == "variance_reduce" else 1,
             rng=np.random.default_rng(cfg.seed + 3),
@@ -1044,7 +1176,7 @@ def run_ogbn(
     log(f"test acc ({eval_mode}): {vr['acc']:.4f} "
         f"(sequential {vr['seq_acc']:.4f}, per-occurrence "
         f"{vr['single_sample_acc']:.4f}, n={vr['n_eval']})")
-    return dict(history=history, test=vr, best_valid=ckpt.best, state=state)
+    return dict(history=history, test=vr, best_valid=ckpt.best, state=full)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,16 @@ on x's device. Parameters are stacked banks (``[T, ...]`` per node type,
 ``[R, ...]`` per relation) under the JAX package's names and shapes; a
 flax ``Dense`` is a ``Linear`` under the flax name (``Dense_0``, ``mid``),
 its kernel transposed (:mod:`pyhgt_tpu_torch.convert`).
+
+Under tensor parallelism (:func:`pyhgt_tpu_torch.parallel.mesh.shard_model`)
+an HGT conv holds its model rank's heads: ``wq/wk/wv [T, Din, D/tp]``,
+``rel_* [R, H/tp, ...]``, ``wa [T, D/tp, D]``. Its input and the RTE
+vectors enter the column-parallel projections through Megatron's "f"
+(their gradients summed over the model group), the edge stage runs on
+``H / tp`` heads, ``gelu`` stays head-local, and the row-parallel A
+linear's partial sums meet in one all-reduce per conv before ``ba``. Every
+tensor after that is replicated. The other convs match no sharding rule
+and run replicated.
 """
 
 from __future__ import annotations
@@ -43,7 +53,11 @@ from torch import nn
 from pyhgt_tpu_torch.ops.hgt import hgt_conv_core, typed_linear
 from pyhgt_tpu_torch.ops.rte import rte_sin_table
 from pyhgt_tpu_torch.ops.segment import segment_softmax, segment_sum
-from pyhgt_tpu_torch.ops.sorted_hgt import hgt_conv_core_sorted
+from pyhgt_tpu_torch.ops.sorted_hgt import (
+    hgt_conv_core_sorted,
+    sum_grads_over,
+    sum_over,
+)
 from pyhgt_tpu_torch.parallel.edge_partition import hgt_conv_core_partitioned
 
 EDGE_IMPLS = ("segment", "sorted")
@@ -192,6 +206,8 @@ class _HGTAttention(nn.Module):
         self.edge_bwd = edge_bwd  # permute | recompute | src_direct | slab
         # "graph": run edge-partitioned when a forward is given an EdgeShard
         self.graph_axis, self.gp_overlap = graph_axis, gp_overlap
+        # tensor parallelism: the model group this rank's heads belong to
+        self.model_group, self.n_model = None, 1
 
         def p(*shape, init):
             return _param(generator, *shape, init=init)
@@ -227,16 +243,44 @@ class _HGTAttention(nn.Module):
         """[L, Din] — sin table through the trainable RTE linear."""
         return self.rte_table @ self.rte_w + self.rte_b
 
-    def _banks(self):
-        return dict(wq=self.wq, bq=self.bq, wk=self.wk, bk=self.bk,
-                    wv=self.wv, bv=self.bv, rel_pri=self.rel_pri,
-                    rel_att=self.rel_att, rel_msg=self.rel_msg,
-                    n_heads=self.n_heads,
-                    rte_vec=self.rte_vectors() if self.use_rte else None)
+    def bind_model_group(self, group, n_model: int):
+        """Run on this rank's ``1 / n_model`` of the heads (the banks cut by
+        :func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`), with ``group``
+        the model group."""
+        if self.n_heads % n_model:
+            raise ValueError(f"n_heads {self.n_heads} does not split over "
+                             f"tp = {n_model}")
+        if self.graph_axis:
+            raise ValueError("tp does not compose with gp")
+        self.model_group, self.n_model = group, n_model
+
+    def _inputs(self, x):
+        """``x`` and the banks the edge core reads. Under tp ``x`` and the
+        RTE vectors pass through "f" together (one all-reduce of their
+        gradients in the backward), and ``n_heads`` is this rank's."""
+        rte = self.rte_vectors() if self.use_rte else None
+        if self.model_group is not None:
+            x, *rest = sum_grads_over(self.model_group, x,
+                                      *(() if rte is None else (rte,)))
+            rte = rest[0] if rest else None
+        return x, dict(wq=self.wq, bq=self.bq, wk=self.wk, bk=self.bk,
+                       wv=self.wv, bv=self.bv, rel_pri=self.rel_pri,
+                       rel_att=self.rel_att, rel_msg=self.rel_msg,
+                       n_heads=self.n_heads // self.n_model, rte_vec=rte)
+
+    def _project(self, a):
+        """The per-type A linear ``a @ wa + ba``; under tp ``wa`` is
+        row-parallel, so the partial sums are summed over the model group
+        ("g") and ``ba`` is added once after the sum."""
+        if self.model_group is None:
+            return typed_linear(a, self.wa, self.ba)
+        part = sum_over(typed_linear(a, self.wa), self.model_group)
+        return part + self.ba.to(part.dtype)[:, None, :]
 
     def _core(self, x, se, em, **kw):
+        x, banks = self._inputs(x)
         return hgt_conv_core_sorted(
-            x, se, em, **self._banks(),
+            x, se, em, **banks,
             edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
             seg_pallas=self.seg_pallas,
             softmax_pallas=self.softmax_pallas, **kw,
@@ -244,13 +288,15 @@ class _HGTAttention(nn.Module):
 
     def _segment_core(self, x, edges, em):
         src, tgt, dt, mask = _edge_arrays(edges, "edge_impl='segment'")
-        return hgt_conv_core(x, src, tgt, dt, mask, em, **self._banks())
+        x, banks = self._inputs(x)
+        return hgt_conv_core(x, src, tgt, dt, mask, em, **banks)
 
     @torch.no_grad()
     def attention_weights(self, x, se, em, edges=None):
         """``[E, H]`` softmax attention per edge (the reference keeps it on
         the module for visualization, ``pyHGT/conv.py:106-108``), in the
-        layout of this conv's edge path: ``se``'s sorted edge order, where
+        layout of this conv's edge path (under tp this rank's heads):
+        ``se``'s sorted edge order, where
         it rides the production core with ``return_attention`` (as in the
         JAX package, the shift-scan or kernel softmax computes them,
         whatever ``softmax_tilemax`` says), or the flat order of
@@ -266,8 +312,9 @@ class _HGTAttention(nn.Module):
             if not self.graph_axis:
                 raise ValueError("an EdgeShard needs a conv built with "
                                  "graph_axis (gp > 1)")
+            x, banks = self._inputs(x)
             return hgt_conv_core_partitioned(
-                x, pe, em, **self._banks(), overlap=self.gp_overlap,
+                x, pe, em, **banks, overlap=self.gp_overlap,
                 save_kv=self.save_kv,
                 edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
                 edge_bwd=self.edge_bwd, seg_pallas=self.seg_pallas,
@@ -313,7 +360,7 @@ class HGTConv(_HGTAttention):
         aggr = self._aggregate(x, se, em, edges, pe)
         # update half (conv.py:114-134): exact (erf) gelu as the reference's
         # F.gelu (conv.py:119), per-type A linear, sigmoid skip gate, norm
-        trans = typed_linear(F.gelu(aggr), self.wa, self.ba)
+        trans = self._project(F.gelu(aggr))
         trans = dropout(trans, self.dropout, self.training, generator)
         alpha = torch.sigmoid(self.skip)[:, None, None]
         out = trans * alpha + x * (1.0 - alpha)
@@ -352,7 +399,7 @@ class DenseHGTConv(_HGTAttention):
         # the JAX DenseHGTConv has no partitioned path either
         _no_partition(pe, "DenseHGTConv")
         aggr = self._aggregate(x, se, em, edges)
-        trans = typed_linear(aggr, self.wa, self.ba)
+        trans = self._project(aggr)
         trans = dropout(trans, self.dropout, self.training, generator)
         res = trans + x
         if self.use_norm:  # per-type norm gated (conv.py:265-266)

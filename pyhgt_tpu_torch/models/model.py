@@ -20,6 +20,7 @@ from pyhgt_tpu_torch.models.conv import (
 )
 from pyhgt_tpu_torch.ops.hgt import typed_linear
 from pyhgt_tpu_torch.parallel.edge_partition import EdgeShard
+from pyhgt_tpu_torch.parallel.mesh import gather_columns
 
 # the convs whose attention rides the sorted edge path when asked to
 SORTED_CONVS = ("hgt", "dense_hgt")
@@ -48,7 +49,14 @@ class GNN(nn.Module):
     :class:`~pyhgt_tpu_torch.parallel.edge_partition.EdgeShard` (or the
     shard in ``se``'s place, so a task's loss passes it unchanged). The dropout masks are then drawn alike on every rank of the
     graph group (the caller seeds their ``generator`` alike), as
-    ``shard_map`` shares the rng along ``graph``."""
+    ``shard_map`` shares the rng along ``graph``.
+
+    Under tensor parallelism (:func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`)
+    the adapters are column-parallel: each model rank applies ``tanh`` to
+    its ``n_hid / tp`` columns and the columns are gathered over the model
+    group into the replicated ``h`` before dropout, whose mask is then the
+    same on every model rank (the caller seeds their ``generator``
+    alike)."""
 
     def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
                  n_layers, *, generator: torch.Generator, dropout=0.2,
@@ -65,6 +73,9 @@ class GNN(nn.Module):
             lecun_normal_(torch.empty(num_types, in_dim, n_hid), generator))
         self.adapt_b = nn.Parameter(torch.zeros(num_types, n_hid))
         self.dropout = dropout
+        self.n_hid = n_hid
+        # tensor parallelism: the model group the adapters' columns span
+        self.model_group = None
         self.convs = nn.ModuleList(
             general_conv(
                 conv_name, n_hid, n_hid, num_types, num_relations, n_heads,
@@ -79,9 +90,18 @@ class GNN(nn.Module):
             for li in range(n_layers)
         )
 
+    def bind_model_group(self, group, n_model: int):
+        """Adapt into this rank's ``n_hid / n_model`` columns (the adapters
+        cut by ``shard_model``) and gather them over ``group``."""
+        if self.n_hid % n_model:
+            raise ValueError(f"n_hid {self.n_hid} does not split over "
+                             f"tp = {n_model}")
+        self.model_group = group
+
     def embed(self, node_feat, node_mask, generator=None):
         """The adapted input: per-type linear, tanh, dropout, node mask."""
         h = torch.tanh(typed_linear(node_feat, self.adapt_w, self.adapt_b))
+        h = gather_columns(h, self.model_group)
         h = dropout(h, self.dropout, self.training, generator)
         return h * node_mask[..., None]
 

@@ -721,6 +721,23 @@ class _SumOverShards(torch.autograd.Function):
         return g, None
 
 
+def sum_grads_over(group, *xs):
+    """``xs`` unchanged, their gradients summed over the process ``group``
+    in the backward (one flat f32 all-reduce): Megatron's "f" at the
+    entry of tensor parallelism's column-parallel projections, where each
+    model rank's backward holds only its heads' part of the input's
+    gradient (:class:`_SumGradsOverShards`, gp's rule for the same
+    reason)."""
+    return _SumGradsOverShards.apply((group, False), *xs)
+
+
+def sum_over(x, group):
+    """``x`` summed over the process ``group``, the backward the identity:
+    Megatron's "g" after a row-parallel product's partial sums
+    (:class:`_SumOverShards`)."""
+    return _SumOverShards.apply(x, (group, False))
+
+
 def _tab_select(k_tab, v_tab, tab_sel):
     """Compact-table rows: a row gather. The JAX package selects with a
     one-hot matmul because the gather's autodiff transpose compiled badly on

@@ -19,14 +19,26 @@ the collectives below on those groups by hand:
 A group of one rank is ``None`` and every collective on it is the
 identity, so a single-process run needs no process group.
 
-Tensor parallelism (:func:`param_shardings` / :func:`shard_params`,
-head-sharded parameter banks) is the next slice of the port and raises.
+Tensor parallelism over the ``model`` axis is Megatron-style, with the JAX
+package's rule table (:data:`_PARAM_RULES`, matched on a parameter's
+trailing name): the Q/K/V banks and biases are column-parallel over
+``Dout = H * dk``, the output projection ``wa`` row-parallel on its input,
+the relation banks split by head, the input adapters column-parallel into
+``n_hid``; everything else (norms, gates, ``ba``, RTE, DenseHGT's FFN, the
+heads, the other convs) is replicated. :func:`param_shardings` names each
+parameter's split axis, :func:`shard_params` cuts a full state dict into
+this rank's slices, :func:`gather_params` is its inverse on the model
+group's first rank, and :func:`shard_model` makes the sharded copy of a
+model whose convs then run their own heads (the collectives are the
+convs' and the GNN's, see :func:`gather_columns`).
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Dict, Optional, Sequence
+import re
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,13 +109,145 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     return Mesh({DATA_AXIS: n_data, MODEL_AXIS: n_model, GRAPH_AXIS: n_graph})
 
 
-def param_shardings(*_args, **_kw):
-    raise NotImplementedError(
-        "tensor parallelism (tp > 1: head-sharded parameter banks) is the "
-        "next slice of the port")
+# parameter-name -> split spec (one entry per dim; the model axis where the
+# parameter is cut), matched on the trailing name as the JAX package does
+_PARAM_RULES = (
+    # column-parallel QKV + their biases: shard Dout (= heads*dk)
+    (r"(wq|wk|wv)$", (None, None, MODEL_AXIS)),
+    (r"(bq|bk|bv)$", (None, MODEL_AXIS)),
+    # row-parallel output projection: shard the *input* Dout axis
+    (r"wa$", (None, MODEL_AXIS, None)),
+    # relation banks: shard heads
+    (r"(rel_att|rel_msg)$", (None, MODEL_AXIS, None, None)),
+    (r"rel_pri$", (None, MODEL_AXIS)),
+    # input adapters: column-parallel into n_hid
+    (r"adapt_w$", (None, None, MODEL_AXIS)),
+    (r"adapt_b$", (None, MODEL_AXIS)),
+)
 
 
-shard_params = param_shardings
+def _spec_for(name: str, leaf) -> tuple:
+    """The split spec of the parameter ``name`` (a dotted
+    ``named_parameters`` key) of ``leaf``'s rank: the first rule whose
+    pattern matches the trailing name and whose spec has one entry per
+    dim; ``()`` (replicated) otherwise."""
+    last = name.rsplit(".", 1)[-1]
+    for pat, spec in _PARAM_RULES:
+        if re.search(pat, last) and len(spec) == leaf.dim():
+            return spec
+    return ()
+
+
+def _axis(spec: tuple) -> Optional[int]:
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def param_shardings(named, mesh: Optional["Mesh"] = None
+                    ) -> Dict[str, Optional[int]]:
+    """The axis each parameter of ``named`` (a module, a state dict or
+    ``named_parameters()`` pairs) is split on over the model axis, or None
+    (replicated). The rules do not depend on ``mesh``, which the JAX
+    signature carries."""
+    if isinstance(named, torch.nn.Module):
+        named = named.state_dict()
+    items = named.items() if isinstance(named, Mapping) else named
+    return {n: _axis(_spec_for(n, t)) for n, t in items}
+
+
+def _model_rank(mesh: "Mesh") -> tuple:
+    return mesh.index(MODEL_AXIS), mesh.size(MODEL_AXIS)
+
+
+def split_along(t: torch.Tensor, axis: Optional[int], mesh: "Mesh"
+                ) -> torch.Tensor:
+    """This model rank's contiguous slice of ``t`` along ``axis`` (``t``
+    itself when None)."""
+    if axis is None:
+        return t
+    i, n = _model_rank(mesh)
+    if t.shape[axis] % n:
+        raise ValueError(f"a dim of {t.shape[axis]} does not split over "
+                         f"tp = {n} model ranks")
+    return t.chunk(n, dim=axis)[i].contiguous()
+
+
+def join_along(t: torch.Tensor, axis: Optional[int], mesh: "Mesh"
+               ) -> torch.Tensor:
+    """Every model rank's slice of a tensor cut by :func:`split_along`,
+    joined along ``axis`` (every rank of the model group calls it)."""
+    group = mesh.group(MODEL_AXIS)
+    if axis is None or group is None:
+        return t
+    return torch.cat(all_gather(t.contiguous(), group), dim=axis)
+
+
+def shard_params(state_dict: Mapping[str, torch.Tensor], mesh: "Mesh"
+                 ) -> Dict[str, torch.Tensor]:
+    """This model rank's slices of a FULL state dict (a single-process
+    model's, or what ``convert.flax_to_state_dict`` gives for the JAX
+    parameters): the weights of a tp rank."""
+    axes = param_shardings(state_dict)
+    return {n: split_along(t, axes[n], mesh) for n, t in state_dict.items()}
+
+
+def gather_params(model: torch.nn.Module, mesh: "Mesh"
+                  ) -> Optional[Dict[str, torch.Tensor]]:
+    """The inverse of :func:`shard_params`: the full state dict of a
+    sharded ``model`` on the first rank of each model group (every rank of
+    the group calls it), None on the others; for checkpoints and the
+    single-device evaluation."""
+    sd = model.state_dict()
+    axes = param_shardings(sd)
+    full = {n: join_along(t, axes[n], mesh) for n, t in sd.items()}
+    return full if mesh.index(MODEL_AXIS) == 0 else None
+
+
+def shard_model(model: torch.nn.Module, mesh: "Mesh") -> torch.nn.Module:
+    """A tensor-parallel copy of ``model`` for this rank of ``mesh``'s
+    model axis: each sharded parameter cut to this rank's slice
+    (:func:`shard_params`), and every submodule with a
+    ``bind_model_group`` (the HGT convs, the GNN's adapters) given the
+    model group, so its forward runs on its own heads or columns and makes
+    the collectives that keep the rest replicated. ``model`` is left
+    whole."""
+    group, (_, n) = mesh.group(MODEL_AXIS), _model_rank(mesh)
+    out = copy.deepcopy(model)
+    axes = param_shardings(out)
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.grad = None
+            if axes[name] is not None:
+                p.data = split_along(p.data, axes[name], mesh).clone()
+    for m in out.modules():
+        if hasattr(m, "bind_model_group"):
+            m.bind_model_group(group, n)
+    return out
+
+
+class _GatherColumns(torch.autograd.Function):
+    """Forward: every model rank's columns of ``x`` joined along the last
+    dim (the replicated tensor); backward: this rank's columns of the
+    gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        parts = all_gather(x.contiguous(), group)
+        ctx.at = dist.get_group_rank(group, dist.get_rank())
+        ctx.width = x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.at * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+def gather_columns(x: torch.Tensor, group) -> torch.Tensor:
+    """The column-parallel ``x`` of each rank of the model ``group``
+    (``[..., D / tp]``) joined into the replicated ``[..., D]``; its
+    gradient is sliced back to this rank's columns. The identity on one
+    rank."""
+    return x if group is None else _GatherColumns.apply(x, group)
 
 
 # ------------------------------------------------------------- collectives

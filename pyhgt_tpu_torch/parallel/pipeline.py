@@ -30,7 +30,10 @@ Every rank holds the whole model; a stage trains its own layers and the
 shared parameters. :func:`gather_pipeline_params` collects the stages on
 the first rank, in the JAX package's stacked form
 (:func:`stack_pipeline_params`), for checkpoints and the single-device
-evaluation (:func:`unstack_pipeline_params`).
+evaluation (:func:`unstack_pipeline_params`), and
+:func:`gather_pipeline_optimizer_state` collects the stages' optimizer
+state there, so a checkpoint holds the whole optimizer and a resume
+restores each stage's.
 
 Constraints kept from the JAX package: ``n_layers % S == 0``,
 ``prev_norm == last_norm`` (the stages must be homogeneous there), and pp
@@ -294,12 +297,34 @@ def gather_pipeline_params(model: torch.nn.Module, mesh: Mesh
     return stack_pipeline_params(named, L, S)
 
 
-@dataclasses.dataclass
-class ExportedState:
-    """What a pipeline's first rank writes as a checkpoint: the whole model
-    (the stages gathered) and the step; no optimizer state (it is spread
-    over the stages), so a resume starts the optimizer afresh."""
+def gather_pipeline_optimizer_state(optimizer: ScheduledOptimizer,
+                                    stage: "Stage", mesh: Mesh
+                                    ) -> Optional[Dict[str, Dict]]:
+    """Every stage's optimizer state of its own layers, keyed by parameter
+    name (``train.checkpoint.named_optimizer_state``'s form), on the first
+    rank of each pipe group with the shared parameters' (every rank of the
+    mesh calls this; the host copies travel as objects over the pipe
+    group); None on the other ranks. Stage 0 holds the shared parameters'
+    state as every stage does."""
+    import torch.distributed as dist
 
-    model: torch.nn.Module
-    step: int
-    optimizer: object = None
+    from pyhgt_tpu_torch.train.checkpoint import named_optimizer_state
+
+    s, pipe = mesh.index(PIPE_AXIS), mesh.group(PIPE_AXIS)
+    own = tuple(f"{CONVS}{i}." for i in stage.layers)
+    mine = {n: st for n, st in named_optimizer_state(
+        optimizer, stage.named_parameters()).items()
+        if s == 0 or n.startswith(own)}
+    if pipe is None:
+        return mine
+    host = {n: {k: (v.detach().cpu() if torch.is_tensor(v) else v)
+                for k, v in st.items()} for n, st in mine.items()}
+    members = mesh.members(PIPE_AXIS)
+    parts = [None] * len(members) if s == 0 else None
+    dist.gather_object(host, parts, dst=members[0], group=pipe)
+    if s != 0:
+        return None
+    out = {}
+    for part in parts:
+        out.update(part)
+    return out

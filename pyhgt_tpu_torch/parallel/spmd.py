@@ -12,6 +12,12 @@ Edge partitioning needs nothing more of the step: the partitioned conv
 (:mod:`pyhgt_tpu_torch.parallel.edge_partition`) leaves the loss and every
 gradient identical on all ranks of a graph group, and dp x gp averages over
 the data group of the mesh.
+
+Tensor parallelism (:func:`make_tp_train_step`) leaves the loss and every
+replicated parameter's gradient whole on each model rank (the sharded
+model's collectives see to that) and each sharded parameter's gradient
+whole for its slice; only the clip's global norm crosses the model group
+(:func:`make_tp_norm`), and dp x tp averages over the data group.
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ from typing import Callable, Sequence
 import torch
 
 from pyhgt_tpu_torch.parallel import mesh as pmesh
-from pyhgt_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from pyhgt_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    param_shardings,
+)
 from pyhgt_tpu_torch.train.optim import ScheduledOptimizer
 
 
@@ -99,4 +110,41 @@ def make_gp_train_step(loss_fn: Callable[..., torch.Tensor],
     loss and gradients come out identical on every rank of the graph group
     (no reduction needed for it); under dp x gp the data group averages
     them. It is :func:`make_dp_train_step` on the mesh."""
+    return make_dp_train_step(loss_fn, optimizer, mesh)
+
+
+def _sq_norm(params) -> torch.Tensor:
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros((), device=params[0].device if params else None)
+    return torch.stack(torch._foreach_norm(grads)).float().square().sum()
+
+
+def make_tp_norm(named, mesh: Mesh) -> Callable[[], torch.Tensor]:
+    """The global gradient norm of a tensor-parallel model (``named``: its
+    ``named_parameters()``), for the clip: the replicated parameters once
+    (every model rank holds their whole gradient) and the sharded ones
+    summed over the model group, sqrt(sum_rep + all_reduce(sum_shard))."""
+    named = list(named)
+    axes = param_shardings(named)
+    sharded = [p for n, p in named if axes[n] is not None]
+    replicated = [p for n, p in named if axes[n] is None]
+    group = mesh.group(MODEL_AXIS)
+
+    def norm():
+        split = pmesh.all_reduce(_sq_norm(sharded).reshape(1), group,
+                                 "sum")[0]
+        return torch.sqrt(_sq_norm(replicated) + split)
+
+    return norm
+
+
+def make_tp_train_step(loss_fn: Callable[..., torch.Tensor],
+                       optimizer: ScheduledOptimizer, named, mesh: Mesh):
+    """``step(*batch) -> loss`` of a tensor-parallel model (``named``: the
+    sharded copy's ``named_parameters()``, what ``optimizer`` updates):
+    the forward and backward on this rank's heads, the loss and gradients
+    averaged over the data group (dp x tp), the clip by the whole model's
+    norm (:func:`make_tp_norm`), the update of this rank's slices."""
+    optimizer.norm_fn = make_tp_norm(named, mesh)
     return make_dp_train_step(loss_fn, optimizer, mesh)

@@ -50,16 +50,18 @@ the plain CPU path.
 The training tasks take the parallel modes, one process per rank under
 ``torchrun``::
 
-    torchrun --standalone --nproc_per_node <dp*gp*pp> -m pyhgt_tpu_torch.run \
-        ogbn_mag --data <graph> --gp 2 [--dp N] [--pp N --pp_micro M] \
-        [--gp_overlap] [--dist_backend nccl|gloo]
+    torchrun --standalone --nproc_per_node <dp*tp*gp*pp> -m pyhgt_tpu_torch.run \
+        ogbn_mag --data <graph> --gp 2 [--dp N] [--tp N] \
+        [--pp N --pp_micro M] [--gp_overlap] [--dist_backend nccl|gloo]
+
+(``--tp`` composes with ``--dp`` only, ``--pp`` with ``--dp`` only).
 
 ``--dist_backend`` is ``nccl`` by default on a GPU (one card per rank) and
 ``gloo`` on the CPU; ``gloo`` also lets several ranks share one card, which
 NCCL refuses. Each rank runs on ``cuda:<LOCAL_RANK % cards>`` (or the
 CPU); rank 0 logs, evaluates and writes the checkpoints, and every rank's
 kernel launches are logged at the end. A world size other than
-``dp * gp * pp`` raises with the torchrun line to use.
+``dp * tp * gp * pp`` raises with the torchrun line to use.
 """
 
 from __future__ import annotations
@@ -276,17 +278,18 @@ def main(argv=None) -> int:
 
 
 def start_world(cfg: ExperimentConfig, args) -> str:
-    """Join the process group of a parallel run (``dp * gp * pp`` ranks,
+    """Join the process group of a parallel run (``dp * tp * gp * pp`` ranks,
     one per process, under torchrun) and return this rank's device; a
     single-process run starts nothing. A world of another size raises,
     with the torchrun line to use."""
     from pyhgt_tpu_torch.parallel.distributed import initialize
 
-    need = max(cfg.dp, 1) * max(cfg.gp, 1) * max(cfg.pp, 1)
+    need = (max(cfg.dp, 1) * max(cfg.tp, 1) * max(cfg.gp, 1)
+            * max(cfg.pp, 1))
     have = int(os.environ.get("WORLD_SIZE", "1"))
     if need != have:
         raise SystemExit(
-            f"dp x gp x pp = {need} ranks but the world has {have}: run "
+            f"dp x tp x gp x pp = {need} ranks but the world has {have}: run "
             f"torchrun --standalone --nproc_per_node {need} -m "
             f"pyhgt_tpu_torch.run {' '.join(sys.argv[1:])}")
     info = initialize(args.dist_backend, args.device)

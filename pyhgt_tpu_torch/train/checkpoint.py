@@ -14,7 +14,7 @@ parameter tree. The best-valid policy of the reference epoch loop
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -39,15 +39,37 @@ def write_checkpoint(path: str, model_state: Mapping[str, torch.Tensor],
 def save_checkpoint(path: str, state: TrainState, force: bool = True) -> None:
     """Save a :class:`~pyhgt_tpu_torch.train.step.TrainState` (model,
     optimizer, step) to the directory ``path``; ``force=False`` refuses to
-    overwrite one. A state whose optimizer is None (a pipeline's model
-    gathered on one rank, whose optimizer state is spread over the stages)
-    is written with none."""
+    overwrite one. A parallel run saves the whole model and optimizer
+    gathered on its first rank (``experiments.engine``), so every
+    checkpoint loads in a single process."""
     if not force and os.path.exists(os.path.join(path, CHECKPOINT_FILE)):
         raise FileExistsError(f"{path} already holds a checkpoint")
-    opt = state.optimizer
     write_checkpoint(path, state.model.state_dict(),
-                     opt.inner.state_dict() if opt is not None else None,
-                     state.step)
+                     state.optimizer.inner.state_dict(), state.step)
+
+
+def named_optimizer_state(optimizer, named) -> Dict[str, Dict[str, Any]]:
+    """The per-parameter state of ``optimizer`` (AdamW: ``exp_avg``,
+    ``exp_avg_sq``, ``step``) keyed by parameter name, over ``named``
+    (``named_parameters()`` pairs of the parameters it updates): the form
+    in which a model spread over ranks moves its moments."""
+    state = optimizer.inner.state
+    return {n: state[p] for n, p in named if p in state}
+
+
+def load_named_optimizer_state(optimizer, named,
+                               by_name: Mapping[str, Mapping[str, Any]]
+                               ) -> None:
+    """Set the state of every parameter of ``named`` that ``by_name``
+    holds (:func:`named_optimizer_state`'s form) into ``optimizer``, the
+    moments copied onto the parameter's device; a per-tensor ``step``
+    stays where the optimizer keeps it (on the host)."""
+    for n, p in named:
+        if n in by_name:
+            optimizer.inner.state[p] = {
+                k: (v.to(p.device, copy=True) if torch.is_tensor(v)
+                    and v.dim() else v.clone() if torch.is_tensor(v) else v)
+                for k, v in by_name[n].items()}
 
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:
@@ -55,7 +77,8 @@ def load_checkpoint(path: str, template: TrainState) -> TrainState:
     same model and optimizer) and return it. The model loads strictly; the
     optimizer's state loads when the checkpoint has one (a checkpoint
     converted from JAX parameters has none: the optimizer stays fresh);
-    the step count is set."""
+    the step count is set. A parallel run restores its whole state here
+    and then hands each rank its part (``experiments.engine``)."""
     payload = torch.load(os.path.join(path, CHECKPOINT_FILE),
                          map_location="cpu", weights_only=True)
     template.model.load_state_dict(payload["model"], strict=True)

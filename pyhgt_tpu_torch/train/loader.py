@@ -92,8 +92,10 @@ class PrefetchLoader:
         split: Optional[Callable] = None,
         local: Optional[Callable] = None,
     ) -> None:
-        """``stack > 1`` collects that many host items per yielded item and
-        combines them with ``collate(items)`` (default: the list). With a
+        """``stack`` host items make each yielded item, combined by
+        ``collate(items)`` when it is given (also for ``stack == 1``: a
+        pipeline of one microbatch) and else, when ``stack > 1``, listed;
+        one item without ``collate`` passes unchanged. With a
         process ``group``, the global rank ``src`` produces the items and
         sends them to the group: ``split(item)`` (on ``src``) gives one
         part per rank of the group, in group order, each rank receiving
@@ -106,7 +108,7 @@ class PrefetchLoader:
         self.repeat = repeat
         self.device = resolve_device(device)
         self.stack = stack
-        self.collate = collate or list
+        self.collate = collate
         self.group, self.src = group, src
         self.split, self.local = split, local
         self._is_src = group is None or dist.get_rank() == src
@@ -209,9 +211,9 @@ class PrefetchLoader:
         item = None
         if self._is_src:
             try:
-                if self.stack > 1:
-                    item = self.collate([self._get_host_item()
-                                         for _ in range(self.stack)])
+                if self.stack > 1 or self.collate is not None:
+                    item = (self.collate or list)(
+                        [self._get_host_item() for _ in range(self.stack)])
                 else:
                     item = self._get_host_item()
             except Exception as e:  # noqa: BLE001 - re-raised below

@@ -20,8 +20,10 @@ holds the same loss, gradients and parameters (a pipeline stage: its own
 layers and the shared ones). Each world is spawned once (gloo on the CPU).
 Also: ``distributed.initialize`` in one process and in two, its refusal
 of nccl with more ranks than cards, the mesh's rank layout, the pipeline
-stacking round trip against the JAX package's tree, ``check_ported`` and
-the pipeline's preconditions, and the bench's gp mode.
+stacking round trip against the JAX package's tree, ``check_ported`` (tp
+runs, tp with gp or pp refused with the JAX package's reasons,
+``param_bf16`` and ``remat`` not ported) and the pipeline's
+preconditions, and the bench's gp mode.
 """
 
 import numpy as np
@@ -320,17 +322,22 @@ def test_bench_gp_mode_runs(worlds):
 
 def test_check_ported_and_pipeline_preconditions():
     cfg = ExperimentConfig()
-    for knob in ("dp", "gp", "pp"):
+    for knob in ("dp", "tp", "gp", "pp"):
         engine.check_ported(cfg.replace(**{knob: 2}))
-    with pytest.raises(NotImplementedError, match="tp = 2"):
-        engine.check_ported(cfg.replace(tp=2))
+    engine.check_ported(cfg.replace(dp=2, tp=2))
+    # the JAX package's refusals (pyhgt_tpu/experiments/engine.py)
+    with pytest.raises(ValueError, match="gp>1 does not compose with tp>1"):
+        engine.check_ported(cfg.replace(tp=2, gp=2))
+    with pytest.raises(ValueError, match="pp composes with dp only"):
+        engine.check_ported(cfg.replace(tp=2, pp=2))
     with pytest.raises(NotImplementedError, match="param_bf16"):
         engine.check_ported(cfg.replace(param_bf16=True))
+    with pytest.raises(NotImplementedError, match="remat"):
+        engine.check_ported(cfg.replace(remat=True))
     with pytest.raises(ValueError, match="n_layers=3 % pp=2"):
         ppl.check_pipeline(3, 2, True, True)
     with pytest.raises(ValueError, match="homogeneous"):
         ppl.check_pipeline(4, 2, True, False)
     with pytest.raises(ValueError, match="composes with dp only"):
         ppl.check_pipeline(4, 2, True, True, gp=2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        pmesh.param_shardings({}, None)
+    assert pmesh.param_shardings({}, None) == {}

@@ -7,8 +7,8 @@ venue) and ``run_author_disambiguation`` trains 2 epochs under ``dp = 2``,
 (``make_toy_graph(60, 30, 5, seed=2)`` with its author names, built by the
 port's container, and ``tests/test_torch_serving.py``'s ogbn labels). Each
 run's losses are finite and the same on both ranks, every score comes from
-rank 0 to both, and rank 0's best checkpoint loads into a single-process
-port model. The CLI: ``python -m pyhgt_tpu_torch.run ogbn_mag --gp 2``
+rank 0 to both, and rank 0's best checkpoint, with the optimizer state of
+every parameter, loads into a single-process port model. The CLI: ``python -m pyhgt_tpu_torch.run ogbn_mag --gp 2``
 under ``torchrun`` (two CPU ranks), and the refusal of a world of the
 wrong size.
 """
@@ -146,9 +146,9 @@ def test_runner_trains_under_mode(runs, runner, mode):
     state = load_checkpoint(path, TrainState(model, engine.make_tx(
         cfg, model.named_parameters(), 2)))
     assert state.step >= 2
-    if mode == "pp":
-        # the pipeline's rank 0 writes the gathered model, no optimizer
-        assert not state.optimizer.inner.state
+    # rank 0 writes the whole model and optimizer (a pipeline's stages and
+    # their AdamW moments gathered first)
+    assert len(state.optimizer.inner.state) == len(list(model.parameters()))
 
 
 def _cli(graph_dir, model_dir, *extra):
