@@ -164,7 +164,31 @@ presets, and checks every hand-written kernel on them:
    second epoch resumed in a 2-rank world (``resume=True``), rank 0's
    checkpoint loaded by one process on the card, which answers a batch; ``[dp-tp-run]``: ``run
    paper_field --dp 2 --tp 2`` (4 ranks, 1 epoch of 2 steps); every rank's
-   launches asserted.
+   launches asserted;
+23. the training-step extras at the bench preset, each against the default
+   step in this run (after item 8): ``[fused-opt]`` the flattened-vector
+   AdamW's parameters after 3 updates from the default AdamW's gradients
+   (rtol 1e-5, atol 1e-6), ms per train step of both in turns, and ms of
+   ``optimizer.step()`` alone for both and for the library's
+   ``AdamW(fused=True)`` under the same clip (timed only); ``[param-bf16]``
+   loss and gradients with bf16 weight banks against the f32 step (rtol
+   2e-2, GRAD_TOL), every gradient f32, the dtype each kernel receives, ms
+   per step, peak memory and launches of both; ``[remat]`` gradients with
+   the edge core recomputed against the step without (SPREAD_TOL, the
+   card's run-to-run spread) beside that step's own spread, ms per step,
+   peak memory and launches (live_partials 3 a layer) of both, and
+   ``[remat-ogbn]`` the same on an ``[ogbn]`` item (the softmax kernel's
+   recompute: 2 a layer); ``[acc]`` ``make_train_step_acc`` with A = 2
+   against a hand-made step on the averaged gradients (the mean loss, the
+   gradients the update reads), ms of one accumulated step against two
+   default steps;
+24. ``[tp-extras-run]`` ``run paper_field --tp 2 --fused_opt --param_bf16
+   --remat``, ``[pp-extras-run]`` ``run ogbn_mag --pp 2 --fused_opt
+   --remat`` and ``[gp-extras-run]`` ``run ogbn_mag --gp 2 --remat`` under
+   torchrun (started with item 21's runs, 1 epoch each), each then resumed
+   for a second epoch from rank 0's ``latest`` checkpoint in a spawned
+   2-rank world, every rank's launches asserted in both (the recompute's
+   included).
 
 Any failed phase raises (exit code != 0). The line before the last carries
 the card's name and power limit, the one before it the kernels' JSON; the
@@ -242,7 +266,12 @@ from pyhgt_tpu_torch.tasks.node_classification import NodeClassificationTask
 from pyhgt_tpu_torch.tasks.ogbn import OgbnNodeTask
 from pyhgt_tpu_torch.train.checkpoint import save_checkpoint
 from pyhgt_tpu_torch.train.log import profile_trace
-from pyhgt_tpu_torch.train.step import TrainState, make_train_step
+from pyhgt_tpu_torch.train.optim import (
+    FlatAdamW, ScheduledOptimizer, cosine_schedule, decays,
+)
+from pyhgt_tpu_torch.train.step import (
+    TrainState, make_train_step, make_train_step_acc,
+)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1226,6 +1255,366 @@ def phase_config_grads(dev, batch, labels, main):
         got = loss_and_grads(dev, batch, labels, **cfg["overrides"])
         compare_grads(f"grads-{name}", "GPU against the main path on the GPU",
                       got, main, t0)
+
+
+# ------------------------------------------------- the training-step extras
+# remat runs the forward's kernels again in the backward's recompute: per
+# layer and step one more live_partials (the forward aggregation) and,
+# where the path runs it, one more segment_softmax_partials; the pair
+# belongs to the backward alone
+REMAT_STEP = dict(MAIN_STEP, live_partials=3)
+# fused AdamW against the per-tensor AdamW on the same gradients: the bound
+# the CPU tests hold the port's fused optimizer to against the JAX package's
+FUSED_RTOL, FUSED_ATOL = 1e-5, 1e-6
+# param_bf16 against the f32 step: the loss as the JAX package's own test
+# holds it (rtol 2e-2); every gradient as the bf16 edge stage's against the
+# CPU (GRAD_TOL): bf16 weight banks move the activations by 2^-9 of their
+# size and the banks' gradients round to bf16
+BF16_LOSS_TOL = 2e-2
+# remat (and the accumulated step) against the plain step on the card: the
+# card's run-to-run spread of a gradient (the window kernel adds with
+# atomics; [determinism] read 1.6e-3 and 2.5e-3 of scale), with margin
+SPREAD_TOL = 5e-3
+
+
+def bench_state(dev, fused=False, **overrides):
+    """A fresh seeded bench-preset flagship and the bench's trainer."""
+    fl = build_flagship("bench", device=dev, seed=0, **overrides)
+    state, step = make_flagship_trainer(fl, fused)
+    return fl, state, step
+
+
+def timed_steps(step, args, n=N_STEPS):
+    """ms per call of ``step(*args)`` over ``n`` calls, each read to the
+    host (the read waits for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        float(step(*args))
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_fused_opt(dev, batch, labels):
+    """[fused-opt]: the flattened-vector AdamW (``fused_opt``) against the
+    default per-tensor AdamW at the bench preset: the parameters after
+    N_STEPS updates from the same gradients (each step's backward on the
+    default model, its gradients copied to the fused one); ms per train
+    step of both (in turns); ms of ``optimizer.step()`` alone (clip and
+    update) for both and for the library's ``AdamW(fused=True)`` under
+    the same clip (timed only, used on no path). Returns the launches of
+    the timed steps."""
+    fa, sa, step_a = bench_state(dev)
+    fb, sb, step_b = bench_state(dev, fused=True)
+    if not isinstance(sb.optimizer.inner, FlatAdamW):
+        raise AssertionError("[fused-opt] fused_opt did not select FlatAdamW")
+    args = fa.to_device(batch, fa.sort(batch), labels)
+    pa, pb = dict(fa.model.named_parameters()), dict(fb.model.named_parameters())
+    for _ in range(N_STEPS):
+        sa.optimizer.zero_grad()
+        sb.optimizer.zero_grad()
+        fa.loss(*args).backward()
+        for n, p in pa.items():
+            pb[n].grad = p.grad.detach().clone()
+        sa.optimizer.step()
+        sb.optimizer.step()
+    worst, worst_name = 0.0, ""
+    for n, p in pa.items():
+        excess = ((pb[n] - p).abs() / (FUSED_ATOL + FUSED_RTOL * p.abs())
+                  ).max().item()
+        if not excess <= worst:
+            worst, worst_name = excess, n
+    ok = worst <= 1.0
+    log(f"[fused-opt] {len(pa)} parameters after {N_STEPS} updates from the "
+        f"same gradients, fused against default: worst |diff| / (atol "
+        f"{FUSED_ATOL:g} + rtol {FUSED_RTOL:g} x |default|) {worst:.3f} at "
+        f"{worst_name} (<= 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[fused-opt] the fused AdamW disagrees")
+    float(step_a(*args))
+    float(step_b(*args))
+    reset_counts()
+    ms = {"default": [], "fused": []}
+    for name, step in (("default", step_a), ("fused", step_b),
+                       ("fused", step_b), ("default", step_a)):
+        ms[name].append(timed_steps(step, args))
+    counts = read_counts()
+    want = scaled(MAIN_STEP, fa.cfg.n_layers * 4 * N_STEPS)
+    log(f"[fused-opt] train step ({N_STEPS} steps x 2 turns each, in turns "
+        f"default, fused, fused, default): default {np.mean(ms['default']):.2f}"
+        f" ms ({ms['default'][0]:.2f}, {ms['default'][1]:.2f}), fused "
+        f"{np.mean(ms['fused']):.2f} ms ({ms['fused'][0]:.2f}, "
+        f"{ms['fused'][1]:.2f}); launches {counts} (expected {want}) "
+        f"{'ok' if counts == want else 'FAIL'} | {card_line()}")
+    if counts != want:
+        raise AssertionError(f"[fused-opt] launches {counts}")
+    # optimizer.step() alone on the gradients of the last step
+    named = list(fa.model.named_parameters())
+    lib = ScheduledOptimizer(torch.optim.AdamW(
+        [{"params": [p for n, p in named if decays(n)], "weight_decay": 0.01},
+         {"params": [p for n, p in named if not decays(n)],
+          "weight_decay": 0.0}], lr=1e-3, betas=(0.9, 0.999), eps=1e-6,
+        fused=True), cosine_schedule(1e-3, 1000), 0.25)
+    n_params = sum(p.numel() for p in pa.values())
+    opt_ms = {"default": [], "fused": [], "library": []}
+    for name, opt in (("default", sa.optimizer), ("fused", sb.optimizer),
+                      ("library", lib), ("library", lib),
+                      ("fused", sb.optimizer), ("default", sa.optimizer)):
+        opt_ms[name].append(cuda_ms(opt.step))
+    # each update reads the gradient, parameter and two moments and writes
+    # the parameter and two moments: 7 f32 passes over the parameters
+    bound = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"[fused-opt] optimizer.step() alone (global-norm clip 0.25 + AdamW "
+        f"over {n_params:,} f32 parameters in {len(pa)} tensors, 20 calls "
+        f"after 3, twice each in turns): default (per-tensor foreach) "
+        f"{np.mean(opt_ms['default']):.3f} ms, fused (one flat vector) "
+        f"{np.mean(opt_ms['fused']):.3f} ms, library AdamW(fused=True) "
+        f"{np.mean(opt_ms['library']):.3f} ms; bound {bound:.3f} ms (7 f32 "
+        f"passes over the parameters at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) | "
+        f"{card_line()}")
+    return counts
+
+
+@contextlib.contextmanager
+def kernel_dtypes():
+    """The dtypes each kernel of the sorted edge stage receives while the
+    block runs: ``{kernel: {dtype, ...}}``."""
+    seen = {}
+    names = ("live_partials", "live_partials_pair", "live_partials_slab",
+             "live_partials_weighted", "segment_softmax_partials")
+    orig = {n: getattr(sorted_hgt, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            seen.setdefault(name, set()).add(str(args[0].dtype))
+            return orig[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(sorted_hgt, n, spy(n))
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(sorted_hgt, n, fn)
+
+
+def grads_of(dev, batch, labels, **overrides):
+    """Loss, gradients (f32 on the host) and the gradients' dtypes of one
+    bench-preset forward and backward, dropout 0."""
+    fl = build_flagship("bench", device=dev, seed=0, dropout=0.0, **overrides)
+    loss = fl.loss(batch, fl.sort(batch), labels)
+    loss.backward()
+    named = list(fl.model.named_parameters())
+    return (loss.item(), {n: p.grad.detach().float().cpu() for n, p in named},
+            {str(p.grad.dtype) for _, p in named})
+
+
+def steps_and_peak(tag, dev, batch, labels, step_counts, fused=False,
+                   **overrides):
+    """One warm-up step, then N_STEPS timed steps of a fresh bench-preset
+    trainer under ``overrides``, their peak memory and their launches
+    (held to ``step_counts`` per layer)."""
+    fl, state, step = bench_state(dev, fused, **overrides)
+    args = fl.to_device(batch, fl.sort(batch), labels)
+    float(step(*args))
+    _sync(dev)
+    _reset_peak(dev)
+    reset_counts()
+    ms = timed_steps(step, args)
+    counts = read_counts()
+    peak = _peak_gib(dev)
+    want = scaled(step_counts, fl.cfg.n_layers * N_STEPS)
+    log(f"[{tag}] {overrides}: {ms:.2f} ms/step ({N_STEPS} steps), peak "
+        f"{peak:.3f} GiB; launches per step "
+        f"{ {k: v / N_STEPS for k, v in counts.items() if v} } (expected per "
+        f"layer {step_counts}) {'ok' if counts == want else 'FAIL'}")
+    if counts != want:
+        raise AssertionError(f"[{tag}] launches {counts} != {want}")
+    del fl, state, step, args
+    torch.cuda.empty_cache()
+    return counts, ms, peak
+
+
+def phase_param_bf16(dev, batch, labels):
+    """[param-bf16]: the bench preset's loss and gradients with bf16 weight
+    banks (``param_bf16``) against the f32 step (dropout 0), every gradient
+    f32; the dtype each kernel receives; ms per step, peak memory and
+    launches of both. Returns the launches of the timed steps."""
+    loss32, g32, _ = grads_of(dev, batch, labels)
+    with kernel_dtypes() as seen:
+        loss16, g16, dtypes = grads_of(dev, batch, labels, param_bf16=True)
+    rel = abs(loss16 - loss32) / abs(loss32)
+    err = grads_err(g16, g32)
+    ok = rel <= BF16_LOSS_TOL and err <= GRAD_TOL and dtypes == {
+        "torch.float32"}
+    log(f"[param-bf16] bench preset, dropout 0: loss {loss16:.5f} against the "
+        f"f32 step's {loss32:.5f} (rel {rel:.2e}, tol {BF16_LOSS_TOL:g}); "
+        f"{len(g32)} gradients, dtypes {sorted(dtypes)}, max err "
+        f"{err:.3e} of the f32 gradient's scale (tol {GRAD_TOL:g}); kernels "
+        f"received { {k: sorted(v) for k, v in seen.items()} } "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[param-bf16] the bf16 weight banks disagree")
+    counts = dict(NO_LAUNCH)
+    for pb in (False, True):
+        c, _, _ = steps_and_peak("param-bf16", dev, batch, labels, MAIN_STEP,
+                                 param_bf16=pb)
+        if pb:
+            counts = c
+    log(f"[param-bf16] | {card_line()}")
+    return counts
+
+
+def ogbn_remat_steps(dev, graph):
+    """One forward and backward of an ``[ogbn]`` path item at the
+    ``ogbn_mag`` preset (D 512, the softmax kernel on) without and with
+    ``remat`` (dropout 0, the same weights): gradients, launches and peak
+    memory. Returns the launches under ``remat``."""
+    item, layout, cfg = ogbn_item(graph)
+    sampler = make_sampler(cfg, graph, log=lambda msg: None)
+    task = OgbnNodeTask(graph=graph, sampler=sampler, layout=layout,
+                        batch_size=cfg.batch_size)
+    em_dev = EdgeStaticMeta.from_layout(layout).to(dev)
+    res = {}
+    for rm in (False, True):
+        c = cfg.replace(dropout=0.0, remat=rm)
+        model = node_classifier(c, layout, item.tb.sub.node_feat.shape[-1],
+                                task.n_classes, seed=3).to(dev)
+        args = label_args(item.tb, item.se, model)(dev)
+        loss_fn = task.make_loss_fn(model, em_dev)
+        loss_fn(None, *args).backward()          # warm-up
+        model.zero_grad(set_to_none=True)
+        _sync(dev)
+        _reset_peak(dev)
+        reset_counts()
+        loss = loss_fn(None, *args)
+        loss.backward()
+        _sync(dev)
+        res[rm] = (loss.item(), read_counts(), _peak_gib(dev),
+                   {n: p.grad.detach().float().cpu()
+                    for n, p in model.named_parameters()})
+        del model, args, loss_fn, loss
+        torch.cuda.empty_cache()
+    (l0, c0, p0, g0), (l1, c1, p1, g1) = res[False], res[True]
+    step = {"live_partials": 3, "softmax": 2}
+    want = {k: step.get(k, 0) * cfg.n_layers for k in NO_LAUNCH}
+    want["pair_window"] = c1["pair_window"]
+    want["pair_runs"] = OGBN_PAIR * cfg.n_layers - c1["pair_window"]
+    err = grads_err(g1, g0)
+    ok = (l1 == l0 or abs(l1 - l0) <= 1e-6 * abs(l0)) and err <= SPREAD_TOL \
+        and c1 == want and c0 == ogbn_expected(cfg.n_layers, 1, 0, c0)
+    log(f"[remat-ogbn] an [ogbn] item at the ogbn_mag preset (softmax "
+        f"kernel on), dropout 0: loss {l1:.6f} with remat, {l0:.6f} without; "
+        f"gradients max err {err:.2e} of scale (tol {SPREAD_TOL:g}); "
+        f"launches of one step {c1} with remat (expected {want}), {c0} "
+        f"without; peak {p1:.3f} GiB with, {p0:.3f} GiB without "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[remat-ogbn] remat disagrees on the ogbn path")
+    return c1
+
+
+def phase_remat(dev, batch, labels):
+    """[remat]: the bench preset's gradients with the edge core recomputed
+    in the backward (``remat``) against the same step without it (dropout
+    0), beside the run-to-run spread of the step without; ms per step,
+    peak memory and launches of both. Returns the launches of the timed
+    steps."""
+    l0, g0, _ = grads_of(dev, batch, labels)
+    l0b, g0b, _ = grads_of(dev, batch, labels)
+    l1, g1, dtypes = grads_of(dev, batch, labels, remat=True)
+    spread, err = grads_err(g0b, g0), grads_err(g1, g0)
+    ok = (abs(l1 - l0) <= 1e-6 * abs(l0) and err <= SPREAD_TOL
+          and dtypes == {"torch.float32"})
+    log(f"[remat] bench preset, dropout 0: loss {l1:.6f} with remat, "
+        f"{l0:.6f} and {l0b:.6f} without (twice); gradients max err "
+        f"{err:.2e} of scale against the step without (tol {SPREAD_TOL:g}), "
+        f"the step without against itself {spread:.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[remat] remat changes the gradients")
+    _, ms0, peak0 = steps_and_peak("remat", dev, batch, labels, MAIN_STEP)
+    counts, ms1, peak1 = steps_and_peak("remat", dev, batch, labels,
+                                        REMAT_STEP, remat=True)
+    log(f"[remat] step {ms1:.2f} ms with remat against {ms0:.2f} ms without; "
+        f"peak {peak1:.3f} GiB against {peak0:.3f} GiB | {card_line()}")
+    return counts
+
+
+def phase_acc(dev):
+    """[acc]: ``make_train_step_acc`` with A = 2 (the batches of seeds 0
+    and 1, dropout 0) against a hand-made step on the averaged gradients
+    (two backwards summed, halved, one update) from the same weights: the
+    mean loss, the gradients the update reads; ms of one accumulated step
+    against two default steps (in turns). Returns the launches of the
+    accumulated steps."""
+    fa, sa, _ = bench_state(dev, dropout=0.0)
+    fb, sb, step_b = bench_state(dev, dropout=0.0)
+    micro = []
+    for seed in (0, 1):
+        batch, labels = synth_flagship_batch(fa, seed=seed)
+        micro.append(fa.to_device(batch, fa.sort(batch), labels))
+    stacked = tuple(zip(*micro))
+    seen = {}
+
+    def capture(opt, model):
+        """Keep the gradients ``opt``'s update reads, by parameter name."""
+        inner_step = opt.step
+
+        def step():
+            seen[id(opt)] = {n: p.grad.detach().float().cpu()
+                             for n, p in model.named_parameters()}
+            inner_step()
+        opt.step = step
+
+    capture(sa.optimizer, fa.model)
+    capture(sb.optimizer, fb.model)
+    acc = make_train_step_acc(lambda gen, *mb: fa.loss(*mb), sa.optimizer)
+    loss_acc = float(acc(None, *stacked))
+    sb.optimizer.zero_grad()
+    losses = []
+    for mb in micro:
+        loss = fb.loss(*mb)
+        loss.backward()
+        losses.append(loss.item())
+    for p in sb.optimizer.params:
+        p.grad.div_(2.0)
+    sb.optimizer.step()
+    want_loss = (losses[0] + losses[1]) / 2
+    err = grads_err(seen[id(sa.optimizer)], seen[id(sb.optimizer)])
+    ok = (abs(loss_acc - want_loss) <= 1e-6 * abs(want_loss)
+          and err <= SPREAD_TOL and sa.step == sb.step == 1)
+    log(f"[acc] A = 2 (seeds 0, 1), dropout 0: mean loss {loss_acc:.6f} "
+        f"against the hand-made step's {want_loss:.6f}; the averaged "
+        f"gradients the update reads, max err {err:.2e} of scale (tol "
+        f"{SPREAD_TOL:g}); one update each {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[acc] the accumulated step disagrees")
+    for opt in (sa.optimizer, sb.optimizer):
+        del opt.step
+    float(acc(None, *stacked))
+    float(step_b(*micro[0]))
+
+    def two_steps():
+        step_b(*micro[0])
+        return step_b(*micro[1])
+
+    reset_counts()
+    ms = {"acc": [], "two": []}
+    for name, fn, a in (("acc", acc, (None, *stacked)), ("two", two_steps, ()),
+                        ("two", two_steps, ()), ("acc", acc, (None, *stacked))):
+        ms[name].append(timed_steps(fn, a))
+    counts = read_counts()
+    want = scaled(MAIN_STEP, fa.cfg.n_layers * 2 * 4 * N_STEPS)
+    log(f"[acc] one accumulated step of 2 microbatches {np.mean(ms['acc']):.2f}"
+        f" ms ({ms['acc'][0]:.2f}, {ms['acc'][1]:.2f}) against two default "
+        f"steps {np.mean(ms['two']):.2f} ms ({ms['two'][0]:.2f}, "
+        f"{ms['two'][1]:.2f}), {N_STEPS} calls x 2 turns each; launches "
+        f"{counts} (expected {want}) {'ok' if counts == want else 'FAIL'} | "
+        f"{card_line()}")
+    if counts != want:
+        raise AssertionError(f"[acc] launches {counts}")
+    return {k: v // 2 for k, v in counts.items()}
 
 
 # the predictor phase: the ogbn-mag proxy at this scale of the real counts
@@ -3859,27 +4248,6 @@ def phase_tp_kernels(fl, dev, batch, ogbn_graph, oag, workdir):
     return out
 
 
-def tp_resume_world(rank, world, workdir, cfg, device):
-    """A rank of ``[tp-run]``'s resumed epoch: ``run_node_classification``
-    (paper field) under ``cfg`` (tp = 2) with ``resume=True`` on
-    ``device``; returns its log, losses and launches."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", dev.index or 0)
-        torch.cuda.set_device(dev)
-    graph = CSRGraph.load_dir(str(Path(workdir) / "oag_graph"), mmap=True)
-    lines = []
-    reset_counts()
-    res = run_node_classification(
-        cfg, graph, label_meta=OAG_FIELD_LABEL, multi_label=True,
-        feature_fn=feature_oag, log=lines.append, resume=True,
-        device=dev)
-    _sync(dev)
-    return dict(lines=lines, counts=read_counts(),
-                losses=[h["loss"] for h in res["history"]])
-
-
 # the torchrun runs: (tag, ranks, flags); the gp run's argv is its own
 OAG_RUNS = (("pp-run", GP, ["--pp", str(GP)]),
             ("dp-gp-run", 2 * GP, ["--dp", "2", "--gp", str(GP)]),
@@ -3887,17 +4255,164 @@ OAG_RUNS = (("pp-run", GP, ["--pp", str(GP)]),
             ("dp-tp-run", 2 * TP, ["--dp", "2", "--tp", str(TP)]))
 
 
-def start_runs(pool, workdir):
+# the training-step extras under torchrun, each started with the other
+# runs and then resumed for one more epoch in a spawned world: (tag,
+# runner, ranks, flags)
+EXTRAS_RUNS = (
+    ("tp-extras-run", "paper_field", TP,
+     ["--tp", str(TP), "--fused_opt", "--param_bf16", "--remat"]),
+    ("pp-extras-run", "ogbn_mag", GP, ["--pp", str(GP), "--fused_opt",
+                                       "--remat"]),
+    ("gp-extras-run", "ogbn_mag", GP, ["--gp", str(GP), "--remat"]),
+)
+# the remat step per layer on the runs' paths (the softmax kernel where
+# the mode runs it: not under gp)
+REMAT_RUN_STEP = {"live_partials": 3, "softmax": 2}
+
+
+def extras_argv(tag, runner, workdir, flags):
+    if runner == "ogbn_mag":
+        return ["ogbn_mag", "--data", str(workdir / "graph"), "--model_dir",
+                str(workdir / tag), *flags, "--dist_backend", "gloo",
+                *SLICE_FLAGS, *GP_RUN_CUTS]
+    return oag_run_argv(tag, workdir, flags)
+
+
+def extras_config(tag, runner, flags, workdir):
+    """The configuration of an extras run's second (resumed) epoch: the
+    CLI run's, two epochs long."""
+    knobs = {k: f"--{k}" in flags for k in ("fused_opt", "param_bf16",
+                                           "remat")}
+    mode = {m: int(flags[flags.index(f"--{m}") + 1])
+            for m in ("tp", "pp", "gp") if f"--{m}" in flags}
+    if runner == "ogbn_mag":
+        base = served_config().replace(n_batch=2, vr_num=1)
+    else:
+        base = oag_config("paper_field", workdir).replace(n_batch=2, repeat=1)
+    return base.replace(model_dir=str(workdir / tag), n_epoch=2, **mode,
+                        **knobs)
+
+
+def resume_world(rank, world, workdir, runner, cfg, device):
+    """A rank of a resumed epoch: the runner (``paper_field`` or
+    ``ogbn_mag``) under ``cfg`` with ``resume=True`` on ``device`` (the
+    ogbn-mag test split cut to one batch); returns its log, losses and
+    launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    lines = []
+    reset_counts()
+    if runner == "ogbn_mag":
+        graph = CSRGraph.load_dir(str(Path(workdir) / "graph"), mmap=True)
+        res = run_ogbn(cfg, graph, log=lines.append, resume=True, device=dev,
+                       max_eval_nodes=cfg.batch_size)
+    else:
+        graph = CSRGraph.load_dir(str(Path(workdir) / "oag_graph"),
+                                  mmap=True)
+        res = run_node_classification(
+            cfg, graph, label_meta=OAG_FIELD_LABEL, multi_label=True,
+            feature_fn=feature_oag, log=lines.append, resume=True,
+            device=dev)
+    _sync(dev)
+    return dict(lines=lines, counts=read_counts(),
+                losses=[h["loss"] for h in res["history"]],
+                fused=type(res["state"].optimizer.inner).__name__)
+
+
+def extras_chain(tag, runner, n, flags, workdir, dev):
+    """An extras run (torchrun, one epoch), then its resumed epoch in an
+    ``n``-rank gloo world; returns both results."""
+    from pyhgt_tpu_torch.parallel.distributed import spawn
+
+    first = torchrun(n, extras_argv(tag, runner, workdir, flags))
+    if first[0]:
+        return first, None, 0.0
+    t0 = time.perf_counter()
+    ranks = spawn(resume_world, n, str(workdir), runner,
+                  extras_config(tag, runner, flags, workdir), str(dev),
+                  backend="gloo", threads=4)
+    return first, ranks, time.perf_counter() - t0
+
+
+def extras_expected(flags, cfg, steps, forwards):
+    """``expect(rank, counts)`` of an extras run's epoch of ``steps``
+    steps with ``forwards`` evaluation forwards on rank 0."""
+    L = cfg.n_layers
+    if "--pp" in flags:
+        layer_steps = steps * PP_MICRO * (L // GP)
+    else:
+        layer_steps = steps * L
+    per = ({"live_partials": 3} if "--gp" in flags else REMAT_RUN_STEP)
+    return lambda r, c: run_expected(c, L, layer_steps, forwards, r == 0, per)
+
+
+def phase_extras_run(tag, runner, n, flags, workdir, graph, started):
+    """[tp-extras-run], [pp-extras-run], [gp-extras-run]: the CLI run of
+    one epoch under the extras' flags, every rank's launches asserted (the
+    recompute's included), then its second epoch resumed in a spawned
+    world from rank 0's ``latest`` checkpoint, launches asserted again.
+    Returns the launches of both, summed over the ranks."""
+    (rc, lines, per, secs), ranks, resume_secs = started.result()
+    cfg = extras_config(tag, runner, flags, workdir)
+    argv = extras_argv(tag, runner, workdir, flags)
+    steps = cfg.n_batch * cfg.repeat
+    if runner == "ogbn_mag":
+        n_test = int(np.asarray(graph.aux["test_mask"]).sum())
+        forwards = 4 + -(-n_test // cfg.batch_size) * cfg.vr_num
+        again_forwards = 4 + cfg.vr_num
+    else:
+        forwards = again_forwards = 1 + OAG_TEST_BATCHES
+    first = check_run(
+        tag, rc, lines, per, secs,
+        f"torchrun --nproc_per_node {n} -m pyhgt_tpu_torch.run "
+        f"{' '.join(argv[:1] + argv[5:])} ({steps} steps, {forwards} "
+        f"forwards on rank 0)",
+        extras_expected(flags, cfg, steps, forwards))
+    expect = extras_expected(flags, cfg, steps, again_forwards)
+    ok = ranks is not None and any(
+        l.startswith("resumed from") for l in ranks[0]["lines"])
+    again = dict(NO_LAUNCH)
+    want_opt = "FlatAdamW" if "--fused_opt" in flags else "AdamW"
+    for r, res in enumerate(ranks or ()):
+        want = expect(r, res["counts"])
+        good = (res["counts"] == want and len(res["losses"]) == 1
+                and np.isfinite(res["losses"]).all()
+                and res["fused"] == want_opt)
+        ok = ok and good
+        log(f"[{tag}-resume] rank {r}: epoch losses {res['losses']}, "
+            f"optimizer {res['fused']}, launches {res['counts']} (expected "
+            f"{want}) {'ok' if good else 'FAIL'}")
+        again = {k: again[k] + res["counts"][k] for k in NO_LAUNCH}
+    for line in (ranks[0]["lines"] if ranks else ()):
+        if line.startswith(("resumed", "epoch")):
+            log(f"[{tag}-resume]   {line}")
+    log(f"[{tag}-resume] {runner} ({' '.join(flags)}) resumed for one more "
+        f"epoch in a {n}-rank gloo world: {resume_secs:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}-resume] the run did not resume")
+    return {k: first[k] + again[k] for k in NO_LAUNCH}
+
+
+def start_runs(pool, workdir, dev):
     """Start the torchrun runs together on ``pool`` (each is host-bound, on
-    its loader and its processes' start): ``[gp-run]`` and the
-    ``OAG_RUNS``; returns their futures by tag. Their step times share the
-    card and the host with each other."""
-    log(f"[runs] {1 + len(OAG_RUNS)} torchrun runs start together ("
-        f"{', '.join(['gp-run'] + [t for t, _, _ in OAG_RUNS])}): their step "
-        f"times share the card and the host")
+    its loader and its processes' start): ``[gp-run]``, the ``OAG_RUNS``
+    and the ``EXTRAS_RUNS`` (each followed by its resumed epoch); returns
+    their futures by tag. Their step times share the card and the host
+    with each other."""
+    tags = (["gp-run"] + [t for t, _, _ in OAG_RUNS]
+            + [t for t, _, _, _ in EXTRAS_RUNS])
+    log(f"[runs] {len(tags)} torchrun runs start together ("
+        f"{', '.join(tags)}): their step times share the card and the host")
     runs = {"gp-run": pool.submit(torchrun, GP, gp_run_argv(workdir))}
     for tag, n, flags in OAG_RUNS:
         runs[tag] = pool.submit(torchrun, n, oag_run_argv(tag, workdir, flags))
+    for tag, runner, n, flags in EXTRAS_RUNS:
+        runs[tag] = pool.submit(extras_chain, tag, runner, n, flags, workdir,
+                                dev)
     return runs
 
 
@@ -3920,8 +4435,8 @@ def phase_tp_run(dev, oag, workdir, started=None):
         model_dir=str(workdir / "tp-run"), n_epoch=2, n_batch=2, repeat=1,
         tp=TP)
     t0 = time.perf_counter()
-    ranks = spawn(tp_resume_world, TP, str(workdir), cfg, str(dev),
-                  backend="gloo", threads=4)
+    ranks = spawn(resume_world, TP, str(workdir), "paper_field", cfg,
+                  str(dev), backend="gloo", threads=4)
     secs = time.perf_counter() - t0
     L = cfg.n_layers
     again = {}
@@ -4024,6 +4539,11 @@ def main():
                     overrides=cfg["overrides"], step_counts=cfg["step"])
     config_counts["head_sum"] = phase_head_sum_path(fl, dev, batch)["head_sum"]
     phase_config_grads(dev, batch, labels, main_grads)
+    # the training-step extras at the bench preset, each against the
+    # default step in this run; launches counted from 0 before each
+    extras = [phase_fused_opt(dev, batch, labels),
+              phase_param_bf16(dev, batch, labels),
+              phase_remat(dev, batch, labels), phase_acc(dev)]
     # the predictor's graph, checkpoint and CLI run live in a temporary
     # directory, removed at the end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4037,6 +4557,7 @@ def main():
         ogbn_counts = phase_ogbn(dev, pred.task.graph, workdir,
                                  profile=args.profile)
         ogbn_kernels = phase_ogbn_kernels(dev, pred.task.graph)
+        extras.append(ogbn_remat_steps(dev, pred.task.graph))
         gp_window = phase_gp_window_kernel(dev, pred.task.graph)
         if args.profile:
             phase_profile(fl, batch, labels, pred)
@@ -4062,19 +4583,27 @@ def main():
         par = phase_parallel(dev, workdir, gp_windows=gp_windows)
         tp_kernels = phase_tp_kernels(fl, dev, batch, pred.task.graph, oag,
                                       workdir)
-        with ThreadPoolExecutor(1 + len(OAG_RUNS)) as pool:
-            runs = start_runs(pool, workdir)
+        with ThreadPoolExecutor(1 + len(OAG_RUNS)
+                                + len(EXTRAS_RUNS)) as pool:
+            runs = start_runs(pool, workdir, dev)
             gp_run = phase_gp_run(pred.task.graph, workdir, runs["gp-run"])
             pp_run, dp_gp_run, tp_run, dp_tp_run = (
                 phase_tp_run(dev, oag, workdir, runs[tag]) if tag == "tp-run"
                 else phase_oag_parallel_run(tag, workdir, n, flags, runs[tag])
                 for tag, n, flags in OAG_RUNS)
+            extras_runs = [
+                phase_extras_run(tag, runner, n, flags, workdir,
+                                 pred.task.graph, runs[tag])
+                for tag, runner, n, flags in EXTRAS_RUNS]
         mode_counts = {
             "gp": {k: par["gp"][k] + gp_run[k] for k in NO_LAUNCH},
             "dp": {k: par["dp"][k] + dp_gp_run[k] for k in NO_LAUNCH},
             "pp": {k: par["pp"][k] + pp_run[k] for k in NO_LAUNCH},
             "tp": {k: par["tp"][k] + tp_run[k] + dp_tp_run[k]
                    for k in NO_LAUNCH}}
+        # the extras' launches: their phases' timed steps and runs
+        extras = {k: sum(c[k] for c in extras + extras_runs)
+                  for k in NO_LAUNCH}
         # the OAG path's launches: every run above, each counted from 0
         # just before it ran
         oag_counts = {k: sum(c[k] for c in (
@@ -4089,10 +4618,12 @@ def main():
     single["launches_ogbn"] = ogbn_counts["live_partials"]
     single["launches_oag"] = oag_counts["live_partials"]
     single["launches_dense_hgt"] = dense_counts["live_partials"]
+    single["launches_extras"] = extras["live_partials"]
     single["launches"] = (single["launches_serve"] + single["launches_train"]
                           + single["launches_predictor"]
                           + single["launches_ogbn"] + single["launches_oag"]
-                          + single["launches_dense_hgt"])
+                          + single["launches_dense_hgt"]
+                          + single["launches_extras"])
     add_mode_launches(single, "live_partials", mode_counts)
     single.update(gp_kernels["live_partials"])
     single.update(tp_kernels["live_partials"])
@@ -4106,8 +4637,10 @@ def main():
         rec["launches_ogbn"] = ogbn_counts[f"pair_{kind}"]
         rec["launches_oag"] = oag_counts[f"pair_{kind}"]
         rec["launches_dense_hgt"] = dense_counts[f"pair_{kind}"]
+        rec["launches_extras"] = extras[f"pair_{kind}"]
         rec["launches"] = (rec["launches_train"] + rec["launches_ogbn"]
-                           + rec["launches_oag"] + rec["launches_dense_hgt"])
+                           + rec["launches_oag"] + rec["launches_dense_hgt"]
+                           + rec["launches_extras"])
         add_mode_launches(rec, f"pair_{kind}", mode_counts)
         rec.update(gp_kernels[f"pair_{kind}"])
         rec.update(tp_kernels.get(f"pair_{kind}", {}))
@@ -4130,10 +4663,12 @@ def main():
                 rec["launches_ogbn"] = ogbn_counts[counter]
                 rec["launches_oag"] = oag_counts[counter]
                 rec["launches_dense_hgt"] = dense_counts[counter]
+                rec["launches_extras"] = extras[counter]
                 rec["launches"] += (rec["launches_predictor"]
                                     + rec["launches_ogbn"]
                                     + rec["launches_oag"]
-                                    + rec["launches_dense_hgt"])
+                                    + rec["launches_dense_hgt"]
+                                    + rec["launches_extras"])
                 rec.update(oag_kernels["softmax"])
                 rec.update(ogbn_kernels["softmax"])
                 rec.update(tp_kernels["softmax"])

@@ -13,7 +13,10 @@ paper-venue and author-disambiguation runners, their evaluation, and node
 and link serving (:mod:`pyhgt_tpu_torch.run`), and the parallel modes of
 the runners and the bench (:mod:`pyhgt_tpu_torch.parallel`: data
 parallelism, edge-partitioned graph parallelism with the kernels on every
-shard, GPipe pipelining; one process per rank over ``torch.distributed``).
+shard, GPipe pipelining, tensor parallelism; one process per rank over
+``torch.distributed``), with the training-step extras (the
+flattened-vector AdamW, bf16 weight banks, recompute of the edge core,
+gradient accumulation) on every runner and mode.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).
@@ -36,3 +39,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def __getattr__(name):
+    """The subpackages on first use (``pyhgt_tpu_torch.models`` and the
+    like), so importing the package itself stays light."""
+    import importlib
+
+    if name in ("models", "ops", "tasks", "train", "parallel", "datasets",
+                "experiments", "flagship"):
+        return importlib.import_module(f"pyhgt_tpu_torch.{name}")
+    raise AttributeError(name)

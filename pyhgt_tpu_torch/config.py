@@ -6,11 +6,12 @@ for field, so the port's CLI (:mod:`pyhgt_tpu_torch.run`) accepts the same
 flags as the JAX package's. ``dp``, ``tp``, ``gp``, ``pp`` (``pp_micro``)
 and ``gp_overlap`` run the parallel modes, one process per rank
 (:func:`pyhgt_tpu_torch.experiments.engine.make_exec`; tp with gp or pp
-raises, as in the JAX package); ``param_bf16`` and ``remat`` raise "not
-ported yet" where a port entry point reads them; ``fused_opt`` is
-ignored. ``conv_name`` picks any conv of the JAX package
-and ``edge_impl`` its edge path (``sorted``, the default here, or
-``segment``).
+raises, as in the JAX package). ``fused_opt`` selects the
+flattened-vector AdamW, ``param_bf16`` bf16 weight banks in the training
+loss with f32 masters, ``remat`` the recompute of each HGT conv's edge
+core in the backward, in every mode. ``conv_name`` picks any conv of the
+JAX package and ``edge_impl`` its edge path (``sorted``, the default here,
+or ``segment``).
 """
 
 from __future__ import annotations

@@ -114,6 +114,7 @@ from pyhgt_tpu_torch.train.optim import (
     cosine_torch_schedule,
     make_optimizer,
     onecycle_schedule,
+    with_bf16_params,
 )
 from pyhgt_tpu_torch.train.step import (
     TrainState,
@@ -133,9 +134,9 @@ OAG_SPLITS = {
 
 def check_ported(cfg: ExperimentConfig) -> None:
     """Raise on a configuration the port cannot run: the JAX package's
-    refusals of tp with gp or pp (``ValueError``, its reasons), and the
-    knobs not ported yet, bf16 weight banks and rematerialization
-    (``NotImplementedError``), instead of running another one."""
+    refusals of tp with gp or pp (``ValueError``, its reasons). Every
+    other knob runs (``param_bf16``, ``remat`` and ``fused_opt`` in every
+    mode)."""
     if cfg.tp > 1 and cfg.gp > 1:
         # the JAX package's design decision (pyhgt_tpu/experiments/engine.py)
         raise ValueError(
@@ -146,11 +147,6 @@ def check_ported(cfg: ExperimentConfig) -> None:
     if cfg.tp > 1 and cfg.pp > 1:
         raise ValueError("pp composes with dp only (pp x tp / pp x gp are "
                          "not wired)")
-    if cfg.param_bf16:
-        raise NotImplementedError("param_bf16 is not ported yet")
-    if cfg.remat:
-        raise NotImplementedError("remat (rematerialization of the "
-                                  "attention core) is not ported yet")
 
 
 def shared_layout(make: Callable[[], BatchLayout]) -> BatchLayout:
@@ -216,11 +212,11 @@ def make_layout(
 def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
     """:class:`~pyhgt_tpu_torch.models.model.GNN`'s arguments: any conv of
     the JAX package (``conv_name``) on either edge path (``edge_impl``),
-    edge-partitioned under ``gp > 1`` (``graph_axis``, ``gp_overlap``).
-    ``remat`` is refused (:func:`check_ported`); an unknown conv name
-    raises when the model is built. Tensor parallelism is not a model
-    argument: :func:`make_exec` shards a built model
-    (:func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`)."""
+    edge-partitioned under ``gp > 1`` (``graph_axis``, ``gp_overlap``),
+    each HGT conv's edge core recomputed in the backward under ``remat``;
+    an unknown conv name raises when the model is built. Tensor
+    parallelism is not a model argument: :func:`make_exec` shards a built
+    model (:func:`~pyhgt_tpu_torch.parallel.mesh.shard_model`)."""
     return dict(
         in_dim=in_dim,
         n_hid=cfg.n_hid,
@@ -242,6 +238,7 @@ def gnn_kwargs(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int) -> dict:
         softmax_tilemax=cfg.softmax_tilemax,
         graph_axis=GRAPH_AXIS if cfg.gp > 1 else "",
         gp_overlap=cfg.gp_overlap,
+        remat=cfg.remat,
     )
 
 
@@ -280,7 +277,8 @@ def link_matcher(cfg: ExperimentConfig, layout: BatchLayout, in_dim: int,
 def make_tx(cfg: ExperimentConfig, named_params, steps_per_epoch: int):
     """The optimizer of ``cfg`` over a model's ``named_parameters()``:
     :func:`~pyhgt_tpu_torch.train.optim.make_optimizer` with the
-    configured schedule, weight decay and clip."""
+    configured schedule, weight decay and clip, the flattened-vector AdamW
+    under ``fused_opt``."""
     if cfg.scheduler == "onecycle":
         # torch total_steps = n_batch*n_epoch + 1 (train_ogbn_mag.py:129)
         sched = onecycle_schedule(
@@ -302,7 +300,8 @@ def make_tx(cfg: ExperimentConfig, named_params, steps_per_epoch: int):
             "(cosine | cosine_torch | onecycle)"
         )
     return make_optimizer(named_params, sched, weight_decay=cfg.weight_decay,
-                          clip_norm=cfg.clip, name=cfg.optimizer)
+                          clip_norm=cfg.clip, name=cfg.optimizer,
+                          fused=cfg.fused_opt)
 
 
 def _infer_in_dim(task_batch) -> int:
@@ -449,7 +448,8 @@ def _make_pp_exec(cfg: ExperimentConfig, pp_parts, state, dp: int, pp: int):
     n_micro = max(cfg.pp_micro, 0) or 2 * pp
     mesh = ppl.make_pipe_mesh(pp, n_data=dp)
     loss = ppl.make_pp_task_loss(state.model, pp_parts["head_loss"], mesh,
-                                 n_micro, pp_parts["em"])
+                                 n_micro, pp_parts["em"],
+                                 param_bf16=cfg.param_bf16)
     tx = pp_parts["remake_tx"](loss.stage.named_parameters())
     state = TrainState(state.model, tx)
     step = ppl.make_pp_train_step(loss, tx, mesh)
@@ -470,7 +470,10 @@ def _make_tp_exec(cfg: ExperimentConfig, parts, state, dp: int, tp: int):
     model = pmesh.shard_model(state.model, mesh)
     named = list(model.named_parameters())
     tx = parts["remake_tx"](named)
-    step = make_tp_train_step(parts["loss_for"](model), tx, named, mesh)
+    loss = parts["loss_for"](model)
+    if cfg.param_bf16:
+        loss = with_bf16_params(loss, model)
+    step = make_tp_train_step(loss, tx, named, mesh)
     loader_kw = dict(seed=cfg.seed + mesh.index(DATA_AXIS),
                      group=mesh.group(MODEL_AXIS),
                      src=mesh.members(MODEL_AXIS)[0])
@@ -498,6 +501,12 @@ def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, parts=None):
       (default 2 * pp) microbatches per step on the GPipe schedule
       (:mod:`pyhgt_tpu_torch.parallel.pipeline`); composes with dp.
 
+    ``param_bf16`` runs the loss in every mode on the bf16 casts of the
+    weight banks, f32 masters in the optimizer
+    (:func:`~pyhgt_tpu_torch.train.optim.with_bf16_params`; under tp over
+    the sharded copy, under pp over each stage's parameters), as the JAX
+    package wraps its loss before the mode branches.
+
     ``parts`` (:func:`_exec_parts`, from the runner) carries what the tp
     and pp branches rebuild. Returns ``(step, loader_kwargs, state, mesh)``
     as the JAX package does: the loader's feed of this rank, the state
@@ -505,6 +514,8 @@ def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, parts=None):
     over this stage's parameters), and the
     :class:`~pyhgt_tpu_torch.parallel.mesh.Mesh` (None on one device)."""
     check_ported(cfg)
+    if cfg.param_bf16:
+        loss_fn = with_bf16_params(loss_fn, state.model)
     dp, tp = max(cfg.dp, 1), max(cfg.tp, 1)
     gp, pp = max(cfg.gp, 1), max(cfg.pp, 1)
     if dp == tp == gp == pp == 1:

@@ -27,8 +27,12 @@ from pyhgt_tpu_torch.ops.hgt import EdgeStaticMeta
 from pyhgt_tpu_torch.ops.sorted_hgt import EDGE_BWD
 from pyhgt_tpu_torch.sampling.batch import BatchLayout, SubgraphBatch
 from pyhgt_tpu_torch.sampling.sorted_batch import SortedEdges, sort_batch
+from pyhgt_tpu_torch.train.optim import with_bf16_params
 from pyhgt_tpu_torch.train.step import nll_loss
 from pyhgt_tpu_torch.utils.synth import synth_batch
+
+# the raw edge arrays of a batch, which the segment path reads
+_EDGE_FIELDS = ("edge_src", "edge_tgt", "edge_dt", "edge_mask")
 
 
 def flagship_schema() -> GraphSchema:
@@ -51,12 +55,13 @@ def flagship_schema() -> GraphSchema:
 @dataclasses.dataclass(frozen=True)
 class FlagshipConfig:
     """The JAX package's ``FlagshipConfig``, every knob under the same
-    name. ``edge_impl`` stays at the JAX default, ``"sorted"`` (the
-    flagship's forward reads the sorted layout alone; the segment path is
-    the GNN's, ``--edge_impl`` of the runners). ``graph_axis`` and
-    ``gp_overlap`` run the convs edge-partitioned over the ranks of a
-    process group (:meth:`Flagship.partition`, ``pe=`` of the forward);
-    ``remat`` and ``param_bf16`` are not ported."""
+    name and default. ``edge_impl`` picks the edge path (``"sorted"``, the
+    JAX default here, or ``"segment"``, on the batch's raw edge arrays);
+    ``graph_axis`` and ``gp_overlap`` run the convs edge-partitioned over
+    the ranks of a process group (:meth:`Flagship.partition`, ``pe=`` of
+    the forward); ``remat`` recomputes each conv's edge core in the
+    backward; ``param_bf16`` runs the training loss on bf16 weight banks
+    with f32 masters (:meth:`Flagship.loss`)."""
 
     node_cap: int
     edge_cap: int
@@ -67,6 +72,7 @@ class FlagshipConfig:
     n_classes: int
     n_seed: int
     dropout: float = 0.2
+    remat: bool = False        # recompute the edge core in the backward
     save_kv: bool = False      # keep the gathered per-edge K/V for the
     # backward: 2 E×D saved buffers for 2 fewer backward gathers per layer
     edge_bf16: bool = False    # per-edge stage in bf16, sums in f32
@@ -76,6 +82,7 @@ class FlagshipConfig:
     softmax_pallas: bool = False  # segment softmax through the
     # segment_softmax_partials kernel; needs the legacy target aux
     # (seg_rank_cap=0), else the next softmax form runs, as in the JAX package
+    edge_impl: str = "sorted"  # sorted (the kernels) | segment (raw edges)
     seg_tile: int = 0          # kernel aux tile K (0 = ops.pallas_seg.PK)
     seg_w: int = 0             # kernel aux output block W (0 = K)
     src_rank_cap: int = 0      # src grouping: singleton-split aux (degree-1
@@ -91,6 +98,8 @@ class FlagshipConfig:
     # back per batch to W = K if a tile holds more segments)
     graph_axis: str = ""       # "graph": edge-partitioned runs (gp > 1)
     gp_overlap: bool = False   # gp: ring all-reduce boundary exchange
+    param_bf16: bool = False   # bf16 weight banks in the training loss,
+    # f32 masters in the optimizer (train/optim.with_bf16_params)
 
 
 PRESETS: Dict[str, FlagshipConfig] = {
@@ -123,7 +132,7 @@ class FlagshipModel(nn.Module):
             cfg.in_dim, cfg.n_hid, num_types, num_relations, cfg.n_heads,
             cfg.n_layers, generator=generator, dropout=cfg.dropout,
             conv_name="hgt", prev_norm=True, last_norm=True, use_rte=True,
-            edge_impl="sorted",
+            edge_impl=cfg.edge_impl, remat=cfg.remat,
             save_kv=cfg.save_kv, edge_bf16=cfg.edge_bf16, seg_pallas=cfg.seg_pallas,
             softmax_tilemax=cfg.softmax_tilemax,
             softmax_pallas=cfg.softmax_pallas, edge_bwd=cfg.edge_bwd,
@@ -131,9 +140,10 @@ class FlagshipModel(nn.Module):
         )
         self.clf = Classifier(cfg.n_hid, cfg.n_classes, generator=generator)
 
-    def forward(self, node_feat, node_mask, se, em, generator=None, pe=None):
+    def forward(self, node_feat, node_mask, se, em, generator=None, pe=None,
+                edges=None):
         return self.head(self.gnn(node_feat, node_mask, se, em, generator,
-                                  pe=pe))
+                                  edges=edges, pe=pe))
 
     def head(self, h):
         seeds = h[0, : self.cfg.n_seed]  # paper seeds come first by contract
@@ -188,18 +198,22 @@ class Flagship:
 
     def to_device(self, batch: SubgraphBatch, se: SortedEdges, labels=None):
         """``(batch, se, labels)`` with what the model reads as tensors on
-        the model's device, so a loop over one batch copies it once."""
+        the model's device (the raw edge arrays too on the segment path),
+        so a loop over one batch copies it once."""
         dev = self.device
-        batch = dataclasses.replace(
-            batch, node_feat=torch.as_tensor(batch.node_feat, device=dev),
-            node_mask=torch.as_tensor(batch.node_mask, device=dev))
+        names = ("node_feat", "node_mask") + (
+            _EDGE_FIELDS if self.model.gnn.reads_edges else ())
+        batch = dataclasses.replace(batch, **{
+            k: torch.as_tensor(getattr(batch, k), device=dev) for k in names})
         if labels is not None:
             labels = torch.as_tensor(labels, device=dev).long()
         return batch, se.to(dev), labels
 
     def _logp(self, batch, se):
+        edges = (tuple(getattr(batch, k) for k in _EDGE_FIELDS)
+                 if self.model.gnn.reads_edges else None)
         return self.model(batch.node_feat, batch.node_mask, se, self.em_dev,
-                          generator=self.dropout_gen)
+                          generator=self.dropout_gen, edges=edges)
 
     @torch.no_grad()
     def forward(self, batch: SubgraphBatch, se: SortedEdges = None):
@@ -217,10 +231,14 @@ class Flagship:
         labels. ``batch``, ``se`` and ``labels`` may be host arrays or
         :meth:`to_device`'s tensors; ``se`` may be this rank's
         :class:`~pyhgt_tpu_torch.parallel.edge_partition.EdgeShard` (the
-        convs then run edge-partitioned)."""
+        convs then run edge-partitioned). Under ``param_bf16`` the forward
+        reads the bf16 casts of the weight banks (evaluation and serving
+        stay on the f32 parameters, as in the JAX package)."""
         self.model.train()
         batch, se, labels = self.to_device(batch, se, labels)
-        return nll_loss(self._logp(batch, se), labels)
+        logp = (with_bf16_params(self._logp, self.model)
+                if self.cfg.param_bf16 else self._logp)
+        return nll_loss(logp(batch, se), labels)
 
 
 def build_flagship(preset: str = "tiny", device=None, seed: int = 0,

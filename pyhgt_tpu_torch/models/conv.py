@@ -40,6 +40,14 @@ vectors enter the column-parallel projections through Megatron's "f"
 linear's partial sums meet in one all-reduce per conv before ``ba``. Every
 tensor after that is replicated. The other convs match no sharding rule
 and run replicated.
+
+``remat`` (the JAX ``jax.checkpoint`` of the attention core) recomputes an
+HGT conv's edge core in the backward instead of keeping its saved
+tensors (:meth:`_HGTAttention._remat`). Under ``param_bf16``
+(:func:`pyhgt_tpu_torch.train.optim.with_bf16_params`) the weight banks
+arrive as bf16 tensors: every product with an activation runs in the
+dtype ``torch.promote_types`` gives the pair (:func:`promoted`), as JAX
+promotes, so an f32 activation meets the bank's rounded values in f32.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pyhgt_tpu_torch.ops.hgt import hgt_conv_core, typed_linear
 from pyhgt_tpu_torch.ops.rte import rte_sin_table
@@ -102,11 +111,34 @@ def dropout(x, p: float, training: bool, generator=None):
     return x * keep / (1.0 - p)
 
 
+def promoted(x, *ws):
+    """``x`` and the weights ``ws`` in the dtype ``torch.promote_types``
+    gives them together (JAX's promotion of mixed operands): an f32
+    activation and a bf16 bank (``param_bf16``) meet in f32, on the bank's
+    rounded values; operands already of that dtype pass unchanged."""
+    dt = x.dtype
+    for w in ws:
+        dt = torch.promote_types(dt, w.dtype)
+    return (x.to(dt), *(w.to(dt) for w in ws))
+
+
+class Dense(nn.Linear):
+    """A ``Linear`` that computes as flax's ``Dense``: input, kernel and
+    bias in the dtype they promote to together (:func:`promoted`)."""
+
+    def forward(self, x):
+        if self.bias is None:
+            x, w = promoted(x, self.weight)
+            return F.linear(x, w)
+        x, w, b = promoted(x, self.weight, self.bias)
+        return F.linear(x, w, b)
+
+
 def dense(n_in, n_out, generator: torch.Generator,
           bias: bool = True) -> nn.Linear:
     """A ``Linear`` initialized as flax's ``Dense`` (lecun_normal kernel,
     zero bias)."""
-    linear = nn.Linear(n_in, n_out, bias=bias)
+    linear = Dense(n_in, n_out, bias=bias)
     with torch.no_grad():
         # flax kernel [in, out] = torch weight [out, in] transposed
         kernel = lecun_normal_(torch.empty(n_in, n_out), generator)
@@ -186,7 +218,7 @@ class _HGTAttention(nn.Module):
                  edge_impl, save_kv, edge_bf16, seg_pallas, softmax_tilemax,
                  softmax_pallas, edge_bwd, skip_gate: bool,
                  typed_norm: bool, graph_axis: str = "",
-                 gp_overlap: bool = False):
+                 gp_overlap: bool = False, remat: bool = False):
         super().__init__()
         T, R, H = num_types, num_relations, n_heads
         Din, Dout = in_dim, out_dim
@@ -204,6 +236,8 @@ class _HGTAttention(nn.Module):
         self.softmax_tilemax = softmax_tilemax
         self.softmax_pallas = softmax_pallas
         self.edge_bwd = edge_bwd  # permute | recompute | src_direct | slab
+        # recompute the edge core in the backward (jax.checkpoint)
+        self.remat = remat
         # "graph": run edge-partitioned when a forward is given an EdgeShard
         self.graph_axis, self.gp_overlap = graph_axis, gp_overlap
         # tensor parallelism: the model group this rank's heads belong to
@@ -241,7 +275,8 @@ class _HGTAttention(nn.Module):
 
     def rte_vectors(self):
         """[L, Din] — sin table through the trainable RTE linear."""
-        return self.rte_table @ self.rte_w + self.rte_b
+        table, w = promoted(self.rte_table, self.rte_w)
+        return table @ w + self.rte_b
 
     def bind_model_group(self, group, n_model: int):
         """Run on this rank's ``1 / n_model`` of the heads (the banks cut by
@@ -257,16 +292,22 @@ class _HGTAttention(nn.Module):
     def _inputs(self, x):
         """``x`` and the banks the edge core reads. Under tp ``x`` and the
         RTE vectors pass through "f" together (one all-reduce of their
-        gradients in the backward), and ``n_heads`` is this rank's."""
+        gradients in the backward), and ``n_heads`` is this rank's. A bf16
+        bank (``param_bf16``) is promoted here, once: the core reads
+        ``wk``, ``wv`` and the relation banks twice each, and promoted at
+        each read its gradient would round to bf16 per read and sum in
+        bf16."""
         rte = self.rte_vectors() if self.use_rte else None
         if self.model_group is not None:
             x, *rest = sum_grads_over(self.model_group, x,
                                       *(() if rte is None else (rte,)))
             rte = rest[0] if rest else None
-        return x, dict(wq=self.wq, bq=self.bq, wk=self.wk, bk=self.bk,
-                       wv=self.wv, bv=self.bv, rel_pri=self.rel_pri,
-                       rel_att=self.rel_att, rel_msg=self.rel_msg,
-                       n_heads=self.n_heads // self.n_model, rte_vec=rte)
+        _, wq, wk, wv, rel_att, rel_msg = promoted(
+            x, self.wq, self.wk, self.wv, self.rel_att, self.rel_msg)
+        return x, dict(wq=wq, bq=self.bq, wk=wk, bk=self.bk, wv=wv,
+                       bv=self.bv, rel_pri=self.rel_pri, rel_att=rel_att,
+                       rel_msg=rel_msg, n_heads=self.n_heads // self.n_model,
+                       rte_vec=rte)
 
     def _project(self, a):
         """The per-type A linear ``a @ wa + ba``; under tp ``wa`` is
@@ -277,10 +318,26 @@ class _HGTAttention(nn.Module):
         part = sum_over(typed_linear(a, self.wa), self.model_group)
         return part + self.ba.to(part.dtype)[:, None, :]
 
+    def _remat(self, core, *args, **kwargs):
+        """``core(*args, **kwargs)``, an edge core; under ``remat`` in a
+        differentiated forward through ``torch.utils.checkpoint`` (non
+        reentrant): its saved tensors (the edge Function's per-edge ones
+        among them) are dropped and the core runs again in the backward,
+        its kernels and its host reads (the ``"auto"`` softmax guard, and
+        under gp the guard's and the statistics' exchanges) with it, in
+        the same order on every rank. The core draws no random numbers
+        (dropout is outside it), so no RNG state is stashed. The callers
+        keep tp's "f" and "g" outside the core, so each of their
+        collectives runs once."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(core, *args, use_reentrant=False,
+                              preserve_rng_state=False, **kwargs)
+        return core(*args, **kwargs)
+
     def _core(self, x, se, em, **kw):
         x, banks = self._inputs(x)
-        return hgt_conv_core_sorted(
-            x, se, em, **banks,
+        return self._remat(
+            hgt_conv_core_sorted, x, se, em, **banks,
             edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
             seg_pallas=self.seg_pallas,
             softmax_pallas=self.softmax_pallas, **kw,
@@ -289,7 +346,7 @@ class _HGTAttention(nn.Module):
     def _segment_core(self, x, edges, em):
         src, tgt, dt, mask = _edge_arrays(edges, "edge_impl='segment'")
         x, banks = self._inputs(x)
-        return hgt_conv_core(x, src, tgt, dt, mask, em, **banks)
+        return self._remat(hgt_conv_core, x, src, tgt, dt, mask, em, **banks)
 
     @torch.no_grad()
     def attention_weights(self, x, se, em, edges=None):
@@ -313,8 +370,9 @@ class _HGTAttention(nn.Module):
                 raise ValueError("an EdgeShard needs a conv built with "
                                  "graph_axis (gp > 1)")
             x, banks = self._inputs(x)
-            return hgt_conv_core_partitioned(
-                x, pe, em, **banks, overlap=self.gp_overlap,
+            return self._remat(
+                hgt_conv_core_partitioned, x, pe, em, **banks,
+                overlap=self.gp_overlap,
                 save_kv=self.save_kv,
                 edge_dtype=torch.bfloat16 if self.edge_bf16 else None,
                 edge_bwd=self.edge_bwd, seg_pallas=self.seg_pallas,
@@ -345,7 +403,7 @@ class HGTConv(_HGTAttention):
                  use_rte=True, edge_impl="segment", save_kv=False,
                  edge_bf16=False, seg_pallas=False, softmax_tilemax="",
                  softmax_pallas=False, edge_bwd="permute", graph_axis="",
-                 gp_overlap=False):
+                 gp_overlap=False, remat=False):
         super().__init__(
             in_dim, out_dim, num_types, num_relations, n_heads,
             generator=generator, dropout=dropout, use_norm=use_norm,
@@ -353,7 +411,7 @@ class HGTConv(_HGTAttention):
             edge_bf16=edge_bf16, seg_pallas=seg_pallas,
             softmax_tilemax=softmax_tilemax, softmax_pallas=softmax_pallas,
             edge_bwd=edge_bwd, skip_gate=True, typed_norm=use_norm,
-            graph_axis=graph_axis, gp_overlap=gp_overlap)
+            graph_axis=graph_axis, gp_overlap=gp_overlap, remat=remat)
 
     def forward(self, x, node_mask, se, em, generator=None, edges=None,
                 pe=None):
@@ -381,14 +439,15 @@ class DenseHGTConv(_HGTAttention):
                  *, generator: torch.Generator, dropout=0.2, use_norm=True,
                  use_rte=True, edge_impl="segment", save_kv=False,
                  edge_bf16=False, seg_pallas=False, softmax_tilemax="",
-                 softmax_pallas=False, edge_bwd="permute"):
+                 softmax_pallas=False, edge_bwd="permute", remat=False):
         super().__init__(
             in_dim, out_dim, num_types, num_relations, n_heads,
             generator=generator, dropout=dropout, use_norm=use_norm,
             use_rte=use_rte, edge_impl=edge_impl, save_kv=save_kv,
             edge_bf16=edge_bf16, seg_pallas=seg_pallas,
             softmax_tilemax=softmax_tilemax, softmax_pallas=softmax_pallas,
-            edge_bwd=edge_bwd, skip_gate=False, typed_norm=True)
+            edge_bwd=edge_bwd, skip_gate=False, typed_norm=True,
+            remat=remat)
         # shared position-wise FFN (conv.py:189-191) + final shared norm
         self.mid = dense(out_dim, out_dim * 2, generator)
         self.out = dense(out_dim * 2, out_dim, generator)
@@ -498,9 +557,10 @@ class RGCNConv(nn.Module):
         rows = em.block_src[:, None] * C + torch.arange(C, device=x.device)
         by_block = x.reshape(N, Din).index_select(
             0, rows.reshape(-1)).reshape(B, C, Din)
-        mats = self.w_rel.index_select(0, em.block_rel)   # [B, Din, Dout]
+        # the bank in f32 before the gather (its gradient sums in f32)
+        mats = self.w_rel.float().index_select(0, em.block_rel)
         h_rel = torch.einsum("bcd,bde->bce", by_block.float(),
-                             mats.float()).reshape(-1, self.out_dim)
+                             mats).reshape(-1, self.out_dim)
         # a masked edge's offset may go below 0: wrapped, as in hgt_conv_core
         h_e = h_rel.index_select(0, torch.remainder(src + em.gather_off,
                                                     B * C))
@@ -546,9 +606,11 @@ class HANConv(nn.Module):
         h = self.Dense_0(x).reshape(N, H, D // H)
         rel = em.edge_rel
         h_src = h.index_select(0, src)
-        e = ((h_src * self.a_src.index_select(0, rel)).sum(-1)
-             + (h.index_select(0, tgt)
-                * self.a_tgt.index_select(0, rel)).sum(-1))
+        # the banks promoted before their per-edge gathers (their
+        # gradients then sum over the edges in the promoted dtype)
+        _, a_src, a_tgt = promoted(h, self.a_src, self.a_tgt)
+        e = ((h_src * a_src.index_select(0, rel)).sum(-1)
+             + (h.index_select(0, tgt) * a_tgt.index_select(0, rel)).sum(-1))
         e = F.leaky_relu(e, negative_slope=self.negative_slope)
         seg = tgt * R + rel
         w = segment_softmax(e, seg, N * R, mask=mask)
@@ -557,7 +619,7 @@ class HANConv(nn.Module):
         # semantic attention over relations (weights over the whole batch)
         proj = torch.tanh(self.Dense_1(h_rel))
         nm = node_mask.reshape(N, 1, 1).to(proj.dtype)
-        scores = ((proj @ self.sem_q) * nm).sum(dim=0) \
+        scores = (torch.matmul(*promoted(proj, self.sem_q)) * nm).sum(dim=0) \
             / torch.clamp(nm.sum(), min=1.0)
         beta = torch.softmax(scores.reshape(R), dim=0)
         out = torch.einsum("nrd,r->nd", h_rel, beta)
@@ -592,7 +654,8 @@ class HetGNNConv(nn.Module):
         agg = (agg / torch.clamp(cnt, min=1.0)[:, None]).reshape(N, T, D)
         # type-level attention, the self embedding included
         cand = torch.cat([h[:, None, :], agg], dim=1)     # [N, T+1, D]
-        scores = F.leaky_relu((cand * h[:, None, :]) @ self.a,
+        scores = F.leaky_relu(torch.matmul(*promoted(cand * h[:, None, :],
+                                                     self.a)),
                               negative_slope=0.2)
         alpha = torch.softmax(scores, dim=1)              # [N, T+1, 1]
         out = (alpha * cand).sum(dim=1)
@@ -605,20 +668,22 @@ def general_conv(conv_name, in_dim, out_dim, num_types, num_relations,
                  save_kv=False, edge_bf16=False, seg_pallas=False,
                  softmax_tilemax="", softmax_pallas=False,
                  edge_bwd="permute", graph_axis="",
-                 gp_overlap=False) -> nn.Module:
+                 gp_overlap=False, remat=False) -> nn.Module:
     """The conv named ``conv_name`` (the JAX ``GeneralConv`` dispatcher,
     ``pyHGT/conv.py:303-324``): one call signature for the heterogeneous
     (hgt, dense_hgt, rgcn, han, hetgnn) and homogeneous (gcn, gat) convs.
     The module is returned itself, not wrapped, so its parameters sit
     directly under ``convs.<i>``. ``graph_axis`` / ``gp_overlap`` reach
-    :class:`HGTConv` (its edge-partitioned path)."""
+    :class:`HGTConv` (its edge-partitioned path); ``remat`` reaches the
+    two HGT convs, whose edge core it recomputes in the backward (the JAX
+    package's baselines take no ``remat`` either)."""
     kw = dict(in_dim=in_dim, out_dim=out_dim, generator=generator)
     hgt = dict(
         kw, num_types=num_types, num_relations=num_relations,
         n_heads=n_heads, dropout=dropout, use_norm=use_norm, use_rte=use_rte,
         edge_impl=edge_impl, save_kv=save_kv, edge_bf16=edge_bf16,
         seg_pallas=seg_pallas, softmax_tilemax=softmax_tilemax,
-        softmax_pallas=softmax_pallas, edge_bwd=edge_bwd)
+        softmax_pallas=softmax_pallas, edge_bwd=edge_bwd, remat=remat)
     if conv_name == "hgt":
         return HGTConv(**hgt, graph_axis=graph_axis, gp_overlap=gp_overlap)
     if conv_name == "dense_hgt":

@@ -56,7 +56,11 @@ class GNN(nn.Module):
     its ``n_hid / tp`` columns and the columns are gathered over the model
     group into the replicated ``h`` before dropout, whose mask is then the
     same on every model rank (the caller seeds their ``generator``
-    alike)."""
+    alike).
+
+    ``remat`` recomputes each HGT conv's edge core in the backward (the
+    JAX ``jax.checkpoint`` of the attention core,
+    :meth:`~pyhgt_tpu_torch.models.conv._HGTAttention._remat`)."""
 
     def __init__(self, in_dim, n_hid, num_types, num_relations, n_heads,
                  n_layers, *, generator: torch.Generator, dropout=0.2,
@@ -64,7 +68,7 @@ class GNN(nn.Module):
                  use_rte=True, edge_impl="segment", save_kv=False,
                  edge_bf16=False, seg_pallas=False, softmax_tilemax="",
                  softmax_pallas=False, edge_bwd="permute", graph_axis="",
-                 gp_overlap=False):
+                 gp_overlap=False, remat=False):
         super().__init__()
         self.conv_name, self.edge_impl = conv_name, edge_impl
         self.reads_edges = (conv_name not in SORTED_CONVS
@@ -85,7 +89,7 @@ class GNN(nn.Module):
                 edge_bf16=edge_bf16, seg_pallas=seg_pallas,
                 softmax_tilemax=softmax_tilemax,
                 softmax_pallas=softmax_pallas, edge_bwd=edge_bwd,
-                graph_axis=graph_axis, gp_overlap=gp_overlap,
+                graph_axis=graph_axis, gp_overlap=gp_overlap, remat=remat,
             )
             for li in range(n_layers)
         )

@@ -118,8 +118,10 @@ def _block_relation_transform(nodes_proj, wk_rel, em: EdgeStaticMeta):
     einsum with wk_rel[block_rel] [B, H, dk, dk] -> [B, C, H, dk].
     """
     by_block = nodes_proj[em.block_src]                  # [B, C, H, dk]
-    mats = wk_rel[em.block_rel]                          # [B, H, dk, dk]
-    out = torch.einsum("bchk,bhkl->bchl", by_block.float(), mats.float())
+    # the bank in f32 before the gather, so that its gradient sums the
+    # blocks in f32 (a bf16 bank under param_bf16 rounds once, at its cast)
+    mats = wk_rel.float()[em.block_rel]                  # [B, H, dk, dk]
+    out = torch.einsum("bchk,bhkl->bchl", by_block.float(), mats)
     return out.to(nodes_proj.dtype)
 
 
@@ -134,8 +136,8 @@ def _rte_block_tables(rte_vec, w_proj, wk_rel, em: EdgeStaticMeta, H, dk):
     L = rte_vec.shape[0]
     per_type = per_type.reshape(per_type.shape[0], L, H, dk)
     by_block = per_type[em.block_src]                    # [B, L, H, dk]
-    mats = wk_rel[em.block_rel]                          # [B, H, dk, dk]
-    out = torch.einsum("blhk,bhkm->blhm", by_block, mats.float())
+    mats = wk_rel.float()[em.block_rel]                  # [B, H, dk, dk]
+    out = torch.einsum("blhk,bhkm->blhm", by_block, mats)
     return out.to(rte_vec.dtype)
 
 

@@ -15,9 +15,10 @@ collectives by hand:
   edges split over the graph group, the kernels running on every shard,
   the softmax statistics, aggregations and node gradients summed across;
 - pipelining (:mod:`~pyhgt_tpu_torch.parallel.pipeline`): the conv stack
-  staged over the pipe group on the GPipe schedule.
-
-Tensor parallelism is not ported.
+  staged over the pipe group on the GPipe schedule;
+- tensor parallelism (:mod:`~pyhgt_tpu_torch.parallel.mesh`'s
+  ``shard_model``, :mod:`~pyhgt_tpu_torch.parallel.spmd`'s tp step): each
+  model rank holds its heads' slices of the attention banks.
 """
 
 from pyhgt_tpu_torch.parallel.mesh import (

@@ -50,7 +50,7 @@ import torch
 from pyhgt_tpu_torch.parallel import mesh as pmesh
 from pyhgt_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS, Mesh
 from pyhgt_tpu_torch.parallel.spmd import make_step, reduce_grads
-from pyhgt_tpu_torch.train.optim import ScheduledOptimizer
+from pyhgt_tpu_torch.train.optim import ScheduledOptimizer, with_bf16_params
 
 CONVS = "gnn.convs."
 
@@ -149,7 +149,7 @@ class Stage:
 
 
 def make_pp_task_loss(model: torch.nn.Module, head_loss: Callable,
-                      mesh: Mesh, n_micro: int, em):
+                      mesh: Mesh, n_micro: int, em, param_bf16: bool = False):
     """The pipelined loss of a task model, forward and backward:
     ``fn(generator, micro) -> loss`` where ``micro`` holds the M
     microbatches, each ``(node_feat, node_mask, se, edges, *labels)`` on
@@ -160,7 +160,11 @@ def make_pp_task_loss(model: torch.nn.Module, head_loss: Callable,
     summed over the pipe group; all of them averaged over the data group)
     and returns the loss, the same on every rank. The JAX function returns
     a loss that ``value_and_grad`` differentiates; here the stages trade
-    gradients by hand, so the backward is part of the call."""
+    gradients by hand, so the backward is part of the call.
+    ``param_bf16``: the stage's forwards and backwards run on the bf16
+    casts of the weight banks it trains
+    (:func:`~pyhgt_tpu_torch.train.optim.with_bf16_params`); the
+    activations sent between stages stay f32."""
     stage = Stage(model, mesh)
     S, s, M = stage.S, stage.s, n_micro
     gnn = model.gnn
@@ -216,6 +220,8 @@ def make_pp_task_loss(model: torch.nn.Module, head_loss: Callable,
                                    extra=(loss,))
         return loss
 
+    if param_bf16:
+        fn = with_bf16_params(fn, model, stage.named_parameters())
     fn.stage = stage
     return fn
 
@@ -251,7 +257,8 @@ def make_pp_loss(fl, mesh: Mesh, n_micro: int):
     def head_loss(model, h, labels):
         return nll_loss(model.head(h), labels)
 
-    return make_pp_task_loss(fl.model, head_loss, mesh, n_micro, fl.em_dev)
+    return make_pp_task_loss(fl.model, head_loss, mesh, n_micro, fl.em_dev,
+                             param_bf16=c.param_bf16)
 
 
 def make_pp_value_and_grad(loss_fn, optimizer: ScheduledOptimizer,
@@ -317,7 +324,10 @@ def gather_pipeline_optimizer_state(optimizer: ScheduledOptimizer,
         if s == 0 or n.startswith(own)}
     if pipe is None:
         return mine
-    host = {n: {k: (v.detach().cpu() if torch.is_tensor(v) else v)
+    # copies of their own: a view (fused_opt's moments) would carry its
+    # whole flat buffer into the pickle
+    host = {n: {k: (v.detach().to("cpu", copy=True) if torch.is_tensor(v)
+                    else v)
                 for k, v in st.items()} for n, st in mine.items()}
     members = mesh.members(PIPE_AXIS)
     parts = [None] * len(members) if s == 0 else None

@@ -63,13 +63,27 @@ def load_named_optimizer_state(optimizer, named,
     """Set the state of every parameter of ``named`` that ``by_name``
     holds (:func:`named_optimizer_state`'s form) into ``optimizer``, the
     moments copied onto the parameter's device; a per-tensor ``step``
-    stays where the optimizer keeps it (on the host)."""
+    stays where the optimizer keeps it (on the host). A tensor the
+    optimizer already holds in the same shape is copied into, so the
+    flat buffers of ``FlatAdamW`` (``fused_opt``), whose per-parameter
+    state is views into them, stay whole."""
     for n, p in named:
-        if n in by_name:
-            optimizer.inner.state[p] = {
-                k: (v.to(p.device, copy=True) if torch.is_tensor(v)
-                    and v.dim() else v.clone() if torch.is_tensor(v) else v)
-                for k, v in by_name[n].items()}
+        if n not in by_name:
+            continue
+        new = {k: (v.to(p.device, copy=True) if torch.is_tensor(v)
+                   and v.dim() else v.clone() if torch.is_tensor(v) else v)
+               for k, v in by_name[n].items()}
+        held = optimizer.inner.state.get(p)
+        if not held:
+            optimizer.inner.state[p] = new
+            continue
+        for k, v in new.items():
+            old = held.get(k)
+            if torch.is_tensor(old) and torch.is_tensor(v) \
+                    and old.shape == v.shape:
+                old.copy_(v)
+            else:
+                held[k] = v
 
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:

@@ -13,16 +13,21 @@ Counterpart of :mod:`pyhgt_tpu.train.optim`. Parity targets:
 The schedules are plain functions of the step (Python floats). The update
 rules are the library's (``torch.optim``); the two places where the JAX
 package's optax chain differs from torch's own helpers are written out in
-:class:`ScheduledOptimizer`. The flattened-vector ``fused_adamw`` and
-``bf16_param_cast`` are not ported yet.
+:class:`ScheduledOptimizer`. :func:`fused_adamw` is the JAX package's
+flattened-vector AdamW (the same math over one f32 vector of every
+parameter), and :func:`bf16_param_cast` / :func:`with_bf16_params` its
+bf16 weight banks at apply time (``param_bf16``).
 """
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Callable, Iterable, Optional, Tuple
+import warnings
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+from torch import nn
 
 # Parameter-name components excluded from weight decay, mirroring the
 # reference's ['bias', 'LayerNorm.weight'] no-decay group plus the scalar
@@ -152,21 +157,210 @@ class ScheduledOptimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def step(self):
-        if self.clip_norm is not None:
-            clip_by_global_norm_(
-                self.params, self.clip_norm,
-                self.norm_fn() if self.norm_fn is not None else None)
+        norm = None
+        if self.clip_norm is not None and self.norm_fn is not None:
+            norm = self.norm_fn()
         lr = self.schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr
-        self.inner.step()
+        if isinstance(self.inner, FlatAdamW):
+            # the clip runs on the flat gradient vector, inside the update
+            self.inner.step(clip_norm=self.clip_norm, norm=norm)
+        else:
+            if self.clip_norm is not None:
+                clip_by_global_norm_(self.params, self.clip_norm, norm)
+            self.inner.step()
         self.count += 1
+
+
+def bf16_param_cast(named) -> Dict[str, torch.Tensor]:
+    """Compute-dtype view of ``named`` (``named_parameters()`` pairs): the
+    weight banks, every parameter :func:`decays` admits, as
+    ``.to(torch.bfloat16)``; the numerics-sensitive leaves (biases, norms,
+    gates, priors: :data:`NO_DECAY_KEYS`) the f32 parameters themselves.
+    The cast is differentiable, so the gradients arrive in f32 on the f32
+    masters. The JAX package casts the same leaves (its ``_decay_mask``)."""
+    return {n: p.to(torch.bfloat16) if decays(n) else p for n, p in named}
+
+
+class _Scope(nn.Module):
+    """``fn`` as the forward of a module holding ``model``, so that
+    ``torch.func.functional_call`` swaps ``model``'s parameters for the
+    length of a call of ``fn`` (a loss closure that calls the model)."""
+
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def with_bf16_params(fn: Callable, model: nn.Module, named=None) -> Callable:
+    """``fn`` (a loss that calls ``model``) run with ``model``'s weight
+    banks replaced by their bf16 casts (:func:`bf16_param_cast` of
+    ``named``, default every parameter of ``model``, names relative to
+    ``model``): the ``param_bf16`` knob, which the JAX package applies to
+    the training loss alone. The f32 parameters stay the optimizer's
+    masters and receive the gradients in f32. Where a bf16 bank meets f32
+    activations the product runs in f32 on the bank's rounded values, the
+    dtype ``torch.promote_types`` gives, as JAX promotes."""
+    named = list(model.named_parameters() if named is None else named)
+    scope = _Scope(model, fn)
+
+    def run(*args, **kwargs):
+        cast = {f"model.{n}": t for n, t in bf16_param_cast(named).items()
+                if t.dtype == torch.bfloat16}
+        return torch.func.functional_call(scope, cast, args, kwargs)
+
+    return run
+
+
+class FlatAdamW(torch.optim.Optimizer):
+    """AdamW over one flattened f32 vector of every parameter: the JAX
+    package's ``fused_adamw``, the same math as the per-tensor chain (clip
+    by global norm, bias-corrected moments, eps 1e-6 outside the root,
+    decoupled decay by a 0/1 mask) in a handful of wide tensor ops. Each
+    step concatenates the gradients and the parameters once, updates the
+    flat moments, and adds the update back with one multi-tensor add.
+
+    The parameter groups are :func:`make_optimizer`'s two (decay, no
+    decay), so a state dict has ``torch.optim.AdamW``'s form and layout and
+    loads into either. ``state[p]`` shows each parameter's moments as views
+    into the flat buffers (``exp_avg``, ``exp_avg_sq``) and the one step
+    count they share (``step``, on the host); loading copies into them
+    (:meth:`load_state_dict`,
+    :func:`~pyhgt_tpu_torch.train.checkpoint.load_named_optimizer_state`).
+    A parameter without a gradient takes a zero one, as in the JAX
+    package's dense tree. Raises ``TypeError`` on a parameter that is not
+    f32."""
+
+    def __init__(self, groups, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-6):
+        params = [p for g in groups for p in g["params"]]
+        bad = sorted({str(p.dtype) for p in params
+                      if p.dtype != torch.float32})
+        if bad:
+            raise TypeError(
+                f"fused_adamw needs an all-f32 parameter set, got {bad}")
+        super().__init__(groups, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=0.0))
+        dev = params[0].device
+        self._sizes = [p.numel() for p in params]
+        n = sum(self._sizes)
+        self._mu = torch.zeros(n, device=dev)
+        self._nu = torch.zeros(n, device=dev)
+        # weight decay times the 0/1 decay mask, per element
+        self._decay = torch.cat([
+            torch.full((p.numel(),), float(g["weight_decay"]), device=dev)
+            for g in self.param_groups for p in g["params"]])
+        self._step = torch.zeros((), dtype=torch.float32)
+        at = 0
+        for p in params:
+            k = p.numel()
+            self.state[p] = {"step": self._step,
+                             "exp_avg": self._mu[at:at + k].view_as(p),
+                             "exp_avg_sq": self._nu[at:at + k].view_as(p)}
+            at += k
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None, *, clip_norm: Optional[float] = None,
+             norm: Optional[torch.Tensor] = None):
+        """One update at the groups' ``lr``; ``clip_norm`` clips the flat
+        gradient by its global norm (``norm`` when given: a norm read
+        across ranks)."""
+        if closure is not None:
+            raise ValueError("FlatAdamW takes no closure")
+        params = self._params()
+        g = torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).reshape(-1)
+                       for p in params])
+        flat = torch.cat([p.reshape(-1) for p in params])
+        if clip_norm is not None:
+            gnorm = torch.linalg.vector_norm(g) if norm is None else norm
+            g = g * torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-16),
+                                max=1.0)
+        group = self.param_groups[0]
+        (b1, b2), eps, lr = group["betas"], group["eps"], group["lr"]
+        self._step += 1
+        c = float(self._step)
+        self._mu.mul_(b1).add_(g, alpha=1.0 - b1)
+        self._nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+        denom = (self._nu / (1.0 - b2 ** c)).sqrt_().add_(eps)
+        upd = (self._mu / (1.0 - b1 ** c)).div_(denom)
+        upd.addcmul_(self._decay, flat).mul_(-lr)
+        torch._foreach_add_(params, [u.view_as(p) for u, p in
+                                     zip(upd.split(self._sizes), params)])
+
+    def state_dict(self):
+        """``torch.optim.AdamW``'s form: each parameter's moments and step
+        as tensors of their own."""
+        sd = super().state_dict()
+        sd["state"] = {i: {k: v.clone() for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
+
+    def load_state_dict(self, state_dict):
+        """Load an AdamW or FlatAdamW state dict by copying each
+        parameter's moments into the flat buffers (a parameter the dict
+        holds no state for restarts from zero moments)."""
+        views = dict(self.state)
+        super().load_state_dict(state_dict)
+        loaded = self.state
+        for p, st in views.items():
+            new = loaded.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in new:
+                    st[k].copy_(new[k])
+                else:
+                    st[k].zero_()
+            if "step" in new:
+                self._step.copy_(new["step"])
+        self.state = collections.defaultdict(dict, views)
+
+
+def _decay_groups(named, weight_decay: float):
+    """The two AdamW parameter groups: decoupled decay on the parameters
+    :func:`decays` admits, none on biases, norms and gates."""
+    return [
+        {"params": [p for n, p in named if decays(n)],
+         "weight_decay": weight_decay},
+        {"params": [p for n, p in named if not decays(n)],
+         "weight_decay": 0.0},
+    ]
+
+
+def _as_schedule(schedule) -> Callable[[int], float]:
+    if callable(schedule):
+        return schedule
+    constant = float(schedule)
+    return lambda step: constant
+
+
+def fused_adamw(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                schedule, weight_decay: float = 0.01,
+                clip_norm: Optional[float] = 0.25, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-6) -> ScheduledOptimizer:
+    """The flattened-vector AdamW of the JAX package (``fused_adamw``)
+    over ``named_params``: :class:`FlatAdamW` under the schedule, the clip
+    on the flat gradient. Raises ``TypeError`` unless every parameter is
+    f32 (:func:`make_optimizer` then falls back to the per-tensor AdamW,
+    as the JAX package does)."""
+    named = list(named_params)
+    schedule = _as_schedule(schedule)
+    inner = FlatAdamW(_decay_groups(named, weight_decay), lr=schedule(0),
+                      betas=(b1, b2), eps=eps)
+    return ScheduledOptimizer(inner, schedule, clip_norm)
 
 
 def make_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                    schedule, weight_decay: float = 0.01,
-                   clip_norm: Optional[float] = 0.25, name: str = "adamw"
-                   ) -> ScheduledOptimizer:
+                   clip_norm: Optional[float] = 0.25, name: str = "adamw",
+                   fused: bool = False) -> ScheduledOptimizer:
     """Optimizer factory + global-norm clip over ``named_params`` (a
     model's ``named_parameters()``). ``schedule`` is a function of the step
     or a constant.
@@ -176,22 +370,24 @@ def make_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     decoupled decay on the parameters :func:`decays` admits, none on biases,
     norms and gates: two parameter groups compute what ``optax.adamw`` with
     its mask does), ``adam``, ``sgd``, ``adagrad`` (accumulator from 0.1 as
-    optax's; torch adds its eps outside the root, optax inside)."""
+    optax's; torch adds its eps outside the root, optax inside). ``fused``
+    (``adamw`` only) selects :func:`fused_adamw`, the same math over one
+    flat vector; a parameter set it refuses (not all f32) falls back to
+    the per-tensor AdamW with a warning, as the JAX package falls back."""
     named = list(named_params)
-    if not callable(schedule):
-        constant = float(schedule)
-        schedule = lambda step: constant  # noqa: E731
+    if name == "adamw" and fused:
+        try:
+            return fused_adamw(named, schedule, weight_decay=weight_decay,
+                               clip_norm=clip_norm)
+        except TypeError as e:
+            warnings.warn(f"{e}: fused_opt falls back to the per-tensor "
+                          "AdamW", RuntimeWarning, stacklevel=2)
+    schedule = _as_schedule(schedule)
     lr0 = schedule(0)
     params = [p for _, p in named]
     if name == "adamw":
-        groups = [
-            {"params": [p for n, p in named if decays(n)],
-             "weight_decay": weight_decay},
-            {"params": [p for n, p in named if not decays(n)],
-             "weight_decay": 0.0},
-        ]
-        inner = torch.optim.AdamW(groups, lr=lr0, betas=(0.9, 0.999),
-                                  eps=1e-6)
+        inner = torch.optim.AdamW(_decay_groups(named, weight_decay), lr=lr0,
+                                  betas=(0.9, 0.999), eps=1e-6)
     elif name == "adam":
         inner = torch.optim.Adam(params, lr=lr0)
     elif name == "sgd":

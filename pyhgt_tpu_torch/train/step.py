@@ -5,8 +5,8 @@ Counterpart of :mod:`pyhgt_tpu.train.step` (``nll_loss``, ``kl_div_loss``,
 epoch-loop body, forward → loss → backward → clip → optimizer step →
 scheduler (``OAG/train_paper_field.py:240-256``). The JAX package traces it
 into one XLA program over a functional state; here the model and the
-optimizer hold their own state and the step runs eagerly. The
-gradient-accumulation variant (``make_train_step_acc``) is not ported yet.
+optimizer hold their own state and the step runs eagerly.
+:func:`make_train_step_acc` is the gradient-accumulation variant.
 """
 
 from __future__ import annotations
@@ -72,6 +72,51 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def _micro_seed(seed: int, m: int) -> int:
+    """The dropout seed of microbatch ``m`` of a step seeded ``seed``."""
+    return (seed * 1_000_003 + m + 1) % (1 << 63)
+
+
+def make_train_step_acc(loss_fn: Callable[..., torch.Tensor],
+                        optimizer: ScheduledOptimizer):
+    """Gradient-accumulation variant of :func:`make_train_step` (the JAX
+    package's ``make_train_step_acc``): ``step(generator, *batch) -> mean
+    loss`` where every batch argument carries a leading accumulation axis
+    ``A`` (a stacked tensor, or a sequence of ``A`` items) and
+    ``loss_fn(generator, *microbatch)`` is a loss whose first argument is
+    the dropout generator (None: no dropout stream). The A forwards and
+    backwards sum their gradients; the sum is divided by A, then one clip
+    and one optimizer update follow, as the JAX package's ``g_sum /
+    n_acc``. Microbatch ``m`` draws its dropout masks from a generator on
+    the step generator's device seeded from the step generator's seed
+    (``initial_seed``) and ``m``, as the JAX package splits the step's key:
+    ranks whose step generators are seeded alike draw alike. The returned
+    loss is detached and stays on its device."""
+    micro_gen = {}
+
+    def step(generator, *batch):
+        n_acc = len(batch[0])
+        optimizer.zero_grad()
+        total = None
+        for m in range(n_acc):
+            gen = None
+            if generator is not None:
+                gen = micro_gen.get(generator.device)
+                if gen is None:
+                    gen = micro_gen[generator.device] = torch.Generator(
+                        device=generator.device)
+                gen.manual_seed(_micro_seed(generator.initial_seed(), m))
+            loss = loss_fn(gen, *(a[m] for a in batch))
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        grads = [p.grad for p in optimizer.params if p.grad is not None]
+        torch._foreach_div_(grads, float(n_acc))
+        optimizer.step()
+        return total / n_acc
 
     return step
 

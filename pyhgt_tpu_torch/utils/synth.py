@@ -70,3 +70,13 @@ def synth_batch(
         edge_mask=edge_mask,
         block_overflow=np.zeros(len(layout.blocks), np.int32),
     )
+
+
+def synth_labels(
+    layout, n_seed: int, n_classes: int, rng: Optional[np.random.Generator] = None
+) -> np.ndarray:
+    """``n_seed`` class labels in ``[0, n_classes)``, int32, drawn from
+    ``rng`` (default ``np.random.default_rng(0)``) as the JAX package's
+    ``synth_labels`` draws them; ``layout`` is unread, as there."""
+    rng = rng or np.random.default_rng(0)
+    return rng.integers(0, n_classes, size=n_seed).astype(np.int32)

@@ -22,7 +22,7 @@ Also: ``distributed.initialize`` in one process and in two, its refusal
 of nccl with more ranks than cards, the mesh's rank layout, the pipeline
 stacking round trip against the JAX package's tree, ``check_ported`` (tp
 runs, tp with gp or pp refused with the JAX package's reasons,
-``param_bf16`` and ``remat`` not ported) and the pipeline's
+``param_bf16``, ``remat`` and ``fused_opt`` accepted) and the pipeline's
 preconditions, and the bench's gp mode.
 """
 
@@ -330,10 +330,11 @@ def test_check_ported_and_pipeline_preconditions():
         engine.check_ported(cfg.replace(tp=2, gp=2))
     with pytest.raises(ValueError, match="pp composes with dp only"):
         engine.check_ported(cfg.replace(tp=2, pp=2))
-    with pytest.raises(NotImplementedError, match="param_bf16"):
-        engine.check_ported(cfg.replace(param_bf16=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        engine.check_ported(cfg.replace(remat=True))
+    # the training-step extras run in every mode the JAX package allows
+    for knobs in (dict(param_bf16=True), dict(remat=True),
+                  dict(fused_opt=True, param_bf16=True, remat=True, dp=2,
+                       tp=2), dict(param_bf16=True, remat=True, pp=2)):
+        engine.check_ported(cfg.replace(**knobs))
     with pytest.raises(ValueError, match="n_layers=3 % pp=2"):
         ppl.check_pipeline(3, 2, True, True)
     with pytest.raises(ValueError, match="homogeneous"):
