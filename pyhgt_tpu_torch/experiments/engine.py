@@ -106,6 +106,7 @@ from pyhgt_tpu_torch.train.checkpoint import (
     named_optimizer_state,
     save_checkpoint,
 )
+from pyhgt_tpu_torch.train.graph_step import GraphedStep
 from pyhgt_tpu_torch.train.loader import PrefetchLoader
 from pyhgt_tpu_torch.train.log import MetricsLogger
 from pyhgt_tpu_torch.train.metrics import ranking_metrics
@@ -116,11 +117,7 @@ from pyhgt_tpu_torch.train.optim import (
     onecycle_schedule,
     with_bf16_params,
 )
-from pyhgt_tpu_torch.train.step import (
-    TrainState,
-    make_eval_step,
-    make_train_step,
-)
+from pyhgt_tpu_torch.train.step import TrainState, make_eval_step
 from pyhgt_tpu_torch.utils.experiment import get_n_params
 
 # the reference's temporal split: train<2015 / 2015<=valid<=2016 / test>2016
@@ -480,11 +477,26 @@ def _make_tp_exec(cfg: ExperimentConfig, parts, state, dp: int, tp: int):
     return step, loader_kw, TrainState(model, tx), mesh
 
 
+def _capturable(cfg: ExperimentConfig) -> bool:
+    """Whether ``cfg``'s one-device step may be captured in CUDA graphs
+    (:class:`~pyhgt_tpu_torch.train.graph_step.GraphedStep`, which also
+    keeps ``fused_opt``'s flat AdamW eager: its step count lives on the
+    host). ``softmax_tilemax="auto"`` reads its guard from the device on
+    the host; ``param_bf16`` and ``remat`` stay eager too, their
+    ``functional_call`` and recompute not having been captured."""
+    return not (cfg.param_bf16 or cfg.remat
+                or cfg.softmax_tilemax == "auto")
+
+
 def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, parts=None):
     """The train step for ``cfg``, honoring ``dp`` / ``tp`` / ``gp`` /
     ``pp`` over the ranks of the ``torch.distributed`` world (one process
     per rank):
 
+    - one device: :class:`~pyhgt_tpu_torch.train.graph_step.GraphedStep`,
+      :func:`~pyhgt_tpu_torch.train.step.make_train_step`'s step replayed
+      from CUDA graphs where it can be (:func:`_capturable`; eager on the
+      CPU);
     - dp > 1: each data rank runs the unbatched loss on its own item; the
       loss and gradients are averaged over the data group before the clip
       and the update (:func:`~pyhgt_tpu_torch.parallel.spmd.make_dp_train_step`);
@@ -519,7 +531,9 @@ def make_exec(cfg: ExperimentConfig, loss_fn, tx, state, parts=None):
     dp, tp = max(cfg.dp, 1), max(cfg.tp, 1)
     gp, pp = max(cfg.gp, 1), max(cfg.pp, 1)
     if dp == tp == gp == pp == 1:
-        return make_train_step(loss_fn, tx), {}, state, None
+        step = GraphedStep(loss_fn, tx, state.model,
+                           capture=_capturable(cfg))
+        return step, {}, state, None
     if (pp > 1 or tp > 1) and parts is None:
         raise ValueError("tp or pp > 1 needs the task's parts "
                          "(_exec_parts: this runner does not support them)")
@@ -673,12 +687,15 @@ def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
     Returns ``(train_loss, edges, overflow, timing)``; ``timing`` holds
     ``step_ms`` (mean) and ``step_ms_max`` over the steps after the first
     (the interval between the ends of consecutive steps on the device's
-    timeline) and ``wait_ms``, the consumer's mean wait on the loader per
-    step (host clock)."""
+    timeline), ``wait_ms``, the consumer's mean wait on the loader per
+    step (host clock), and ``graph_share``, the share of the steps a CUDA
+    graph replayed (:class:`~pyhgt_tpu_torch.train.graph_step.GraphedStep`;
+    0 for a step that has no graphs)."""
     n_steps = cfg.n_batch * cfg.repeat
     losses, marks = [], []
     edges = overflow = 0
     wait = 0.0
+    replays = getattr(step, "replays", 0)
     # a profiler span over the epoch's steps, up to the read of their
     # losses (a trace's idle share is read within it)
     with torch.profiler.record_function(TRAIN_SPAN):
@@ -698,7 +715,8 @@ def _train_epoch(step, it, cfg: ExperimentConfig, epoch: int, gen, dev,
     timing = dict(
         step_ms=float(np.mean(step_ms)) if step_ms else None,
         step_ms_max=float(np.max(step_ms)) if step_ms else None,
-        wait_ms=wait * 1e3 / n_steps)
+        wait_ms=wait * 1e3 / n_steps,
+        graph_share=(getattr(step, "replays", 0) - replays) / n_steps)
     return train_loss, edges, overflow, timing
 
 
@@ -801,10 +819,11 @@ def _metrics_logger(cfg: ExperimentConfig) -> MetricsLogger:
 
 
 def _timing_text(timing) -> str:
-    """The epoch log line's step-time and loader-wait part."""
+    """The epoch log line's step-time, loader-wait and graph-share part."""
     step = (f"step {timing['step_ms']:.1f} ms, "
             if timing["step_ms"] is not None else "")
-    return f"{step}loader wait {timing['wait_ms']:.1f} ms/step"
+    return (f"{step}loader wait {timing['wait_ms']:.1f} ms/step, graph "
+            f"share {timing['graph_share']:.2f}")
 
 
 def _loader(producer, cfg: ExperimentConfig, dev, loader_kw):
@@ -1064,7 +1083,7 @@ def run_author_disambiguation(
     def step_args(item):
         sub, tb = item.tb.sub, item.tb
         return (t(sub.node_feat), t(sub.node_mask), item.se, t(tb.cand_idx),
-                t(tb.cand_mask), t(tb.query_mask).float(),
+                t(tb.cand_mask), t(tb.query_mask),
                 raw_edges(model, sub, dev))
 
     history = _fit(cfg, producer, step, step_args, loader_kw, validate,

@@ -15,6 +15,9 @@ device prefetch:
   reads the item waits on the copy's event, so a step never waits on PCIe
   unless the copy is not done (the reference pays a ``.to(device)`` on the
   critical path every batch, ``train_paper_field.py:242-243``);
+- where a consumer on the device holds :class:`InputSlots` (a CUDA-graphed
+  train step, which reads its inputs at fixed addresses), the copies land
+  in those slots instead of in fresh memory;
 - ``repeat`` re-yields each sampled batch k times (``--repeat``,
   ``train_paper_field.py:57-58,240``);
 - ``stack`` collects that many items per yielded one (``collate``), the
@@ -37,7 +40,8 @@ import collections
 import dataclasses
 import queue
 import threading
-from typing import Callable, Iterator, Optional
+import weakref
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -59,6 +63,100 @@ def map_arrays(fn, obj):
     if isinstance(obj, dict):
         return {k: map_arrays(fn, v) for k, v in obj.items()}
     return obj
+
+
+def array_leaves(obj) -> list:
+    """The numpy array and tensor leaves of ``obj``, in the order
+    :func:`map_arrays` visits them."""
+    leaves = []
+
+    def keep(a):
+        leaves.append(a)
+        return a
+
+    map_arrays(keep, obj)
+    return leaves
+
+
+# each device's input slots, held weakly: they live as long as the consumer
+# that owns them. A loader finds them here because its callers build it
+# without knowing the step that will read its items.
+_SLOTS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+class InputSlots:
+    """Two places on a device where a consumer wants its items: a
+    CUDA-graphed train step, whose graphs read their inputs at the
+    addresses they were captured on
+    (:class:`~pyhgt_tpu_torch.train.graph_step.GraphedStep`).
+
+    Once made, a consumer's slots serve every :class:`PrefetchLoader`
+    iterated on their device. The first two items of one layout (the shapes and
+    dtypes of their array leaves) that such a loader copies to the device
+    become the slots; each later item of that layout is copied into the
+    slot the loader's pending item does not hold. So the card holds no
+    more copies of an item than the loader's one-deep prefetch holds
+    anyway, and a consumer of such a loader must not read an item after
+    it has asked for the one after it. Items of another layout are copied
+    to fresh memory, as without slots."""
+
+    COUNT = 2
+
+    def __init__(self, device):
+        self.device = _indexed(device)
+        self.layout = None
+        self.leaves: List[list] = []    # per slot, its device tensors
+        self.ptrs: List[frozenset] = []  # per slot, their addresses
+        self.written: list = []         # per slot, the end of its last copy
+        _SLOTS[self.device] = self
+
+    @staticmethod
+    def on(device) -> Optional["InputSlots"]:
+        """The slots a consumer holds on ``device``, or None."""
+        return _SLOTS.get(_indexed(device))
+
+    def index(self, tensors) -> Optional[int]:
+        """The slot every one of ``tensors`` is a leaf of, or None."""
+        ptrs = [t.data_ptr() for t in tensors]
+        for k, held in enumerate(self.ptrs):
+            if all(p in held for p in ptrs):
+                return k
+        return None
+
+    def free(self, layout, busy: Optional[int]) -> Optional[int]:
+        """The slot an item of ``layout`` is copied into when the slot
+        ``busy`` (the loader's pending item) must stay as it is; None when
+        the item goes to fresh memory (another layout, or the slots are
+        not all made yet)."""
+        if layout != self.layout or len(self.leaves) < self.COUNT:
+            return None
+        return next(k for k in range(self.COUNT) if k != busy)
+
+    def adopt(self, layout, dev) -> Optional[int]:
+        """Make the device item ``dev`` (an item of ``layout`` just copied
+        to fresh memory) a slot, if the slots are not all made and
+        ``layout`` is theirs (or the first); returns its slot or None."""
+        if (len(self.leaves) >= self.COUNT
+                or self.layout not in (None, layout)):
+            return None
+        self.layout = layout
+        leaves = array_leaves(dev)
+        self.leaves.append(leaves)
+        self.ptrs.append(frozenset(t.data_ptr() for t in leaves))
+        self.written.append(None)
+        return len(self.leaves) - 1
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _layout(leaves) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in leaves)
 
 
 def _pinned(a):
@@ -243,35 +341,65 @@ class PrefetchLoader:
             item = map_arrays(_pinned, item)
         return item
 
-    def _to_device(self, pinned):
+    def _to_device(self, pinned, busy=None, slots=None):
         """Start the item's copies on the side stream; returns the device
-        item and the event that marks them done."""
+        item, the event that marks them done, the slot of ``slots`` that
+        holds it (or None) and whether it is in fresh memory. ``busy`` is
+        the slot of the pending item, which must stay as it is."""
         while self._inflight and self._inflight[0][0].query():
             self._inflight.popleft()
+        k = None
+        if slots is not None:
+            layout = _layout(array_leaves(pinned))
+            k = slots.free(layout, busy)
+        fresh = k is None
+        if not fresh:
+            # the slot's last reader is queued on the consumer's stream,
+            # and its last copy on this or another loader's: wait for both
+            read = torch.cuda.Event()
+            read.record(torch.cuda.current_stream(self.device))
+            self._stream.wait_event(read)
+            if slots.written[k] is not None:
+                self._stream.wait_event(slots.written[k])
         with torch.cuda.stream(self._stream):
-            dev = map_arrays(
-                lambda t: t.to(self.device, non_blocking=True), pinned)
+            if fresh:
+                dev = map_arrays(
+                    lambda t: t.to(self.device, non_blocking=True), pinned)
+                if slots is not None:
+                    k = slots.adopt(layout, dev)
+            else:
+                into = iter(slots.leaves[k])
+                dev = map_arrays(
+                    lambda t: next(into).copy_(t, non_blocking=True), pinned)
             done = torch.cuda.Event()
             done.record(self._stream)
+        if k is not None:
+            slots.written[k] = done
         self._inflight.append((done, pinned))
-        return dev, done
+        return dev, done, k, fresh
 
-    def _ready(self, dev, done):
+    def _ready(self, dev, done, k, fresh):
         """Make the consumer's stream wait for the copies, and tell the
-        allocator that the consumer's stream uses the tensors (they were
-        allocated on the side stream)."""
+        allocator that the consumer's stream uses the tensors of a fresh
+        allocation (they were allocated on the side stream)."""
         consumer = torch.cuda.current_stream(self.device)
         consumer.wait_event(done)
-        map_arrays(lambda t: t.record_stream(consumer), dev)
+        if fresh:
+            map_arrays(lambda t: t.record_stream(consumer), dev)
         return dev
 
     def __iter__(self) -> Iterator:
+        return self._items(InputSlots.on(self.device) if self._pin else None)
+
+    def _items(self, slots) -> Iterator:
+        """The yielded items; on the device's ``slots`` where given."""
         self.start()
         pending = None  # one-deep device prefetch pipeline
         while True:
             item = self._next_host_item()
             if self._pin:
-                item = self._to_device(item)
+                item = self._to_device(
+                    item, pending[2] if pending is not None else None, slots)
             for _ in range(self.repeat):
                 if pending is not None:
                     yield (self._ready(*pending) if self._pin
@@ -279,5 +407,7 @@ class PrefetchLoader:
                 pending = item
 
     def take(self, n: int):
-        it = iter(self)
+        """The next ``n`` items, each in memory of its own (never in
+        :class:`InputSlots`: the caller holds them all)."""
+        it = self._items(None)
         return [next(it) for _ in range(n)]

@@ -157,6 +157,9 @@ class ScheduledOptimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def step(self):
+        """Clip, update at ``schedule(count)`` and advance ``count``.
+        Returns the global gradient norm the clip read (a device tensor),
+        or None: no clip, or ``FlatAdamW``'s clip inside its update."""
         norm = None
         if self.clip_norm is not None and self.norm_fn is not None:
             norm = self.norm_fn()
@@ -168,9 +171,10 @@ class ScheduledOptimizer:
             self.inner.step(clip_norm=self.clip_norm, norm=norm)
         else:
             if self.clip_norm is not None:
-                clip_by_global_norm_(self.params, self.clip_norm, norm)
+                norm = clip_by_global_norm_(self.params, self.clip_norm, norm)
             self.inner.step()
         self.count += 1
+        return norm
 
 
 def bf16_param_cast(named) -> Dict[str, torch.Tensor]:

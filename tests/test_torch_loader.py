@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyhgt_tpu_torch.train.loader import PrefetchLoader
+from pyhgt_tpu_torch.train.loader import InputSlots, PrefetchLoader
 
 
 def sample_fn(rng):
@@ -136,3 +136,70 @@ def test_cuda_pinned_copies_equal_host_items():
             torch.testing.assert_close(item.feat.cpu(), torch.from_numpy(w.feat),
                                        rtol=0, atol=0)
             assert torch.equal(item.idx.cpu(), torch.from_numpy(w.idx))
+
+
+def test_input_slots_take_items_in_turn():
+    """The first two items of one layout become the slots; each later one
+    goes to the slot the pending item does not hold; another layout, or
+    slots not yet made, go to fresh memory; a slot is found by the
+    addresses of its leaves."""
+    slots = InputSlots("cpu")
+    layout = ((3, 4), torch.float32), ((7,), torch.int64)
+    other = ((3, 5), torch.float32), ((7,), torch.int64)
+
+    def item():
+        return {"x": torch.zeros(3, 4),
+                "ids": torch.zeros(7, dtype=torch.long)}
+
+    assert slots.free(layout, None) is None
+    a, b = item(), item()
+    assert slots.adopt(layout, a) == 0
+    assert slots.free(layout, 0) is None
+    assert slots.adopt(other, item()) is None
+    assert slots.adopt(layout, b) == 1
+    assert slots.adopt(layout, item()) is None
+    assert slots.free(layout, 0) == 1 and slots.free(layout, 1) == 0
+    assert slots.free(layout, None) in (0, 1)
+    assert slots.free(other, 0) is None
+    assert slots.index([a["ids"], a["x"]]) == 0
+    assert slots.index([b["x"]]) == 1
+    assert slots.index([a["x"], b["ids"]]) is None
+    assert InputSlots.on("cpu") is slots
+    del slots
+    assert InputSlots.on("cpu") is None
+
+
+@pytest.mark.cuda
+def test_cuda_items_land_in_input_slots():
+    """With input slots held on the card, the loader's items alternate
+    between two fixed places and still arrive equal to their host items
+    while the consumer's stream is busy; ``take`` keeps its items apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def big(rng):
+        return _Batch(rng.random((512, 1024)).astype(np.float32),
+                      rng.integers(0, 2**31 - 1, size=1 << 18), 7)
+
+    seeds = np.random.default_rng(9)
+    want = [big(np.random.default_rng(int(seeds.integers(0, 2**31 - 1))))
+            for _ in range(8)]
+    slots = InputSlots("cuda")
+    a = torch.randn(2048, 2048, device="cuda")
+    places = []
+    with PrefetchLoader(big, n_workers=1, seed=9, device="cuda") as pl:
+        it = iter(pl)
+        for w in want:
+            for _ in range(4):
+                a = a @ a / 2048  # keep the consumer's stream busy
+            item = next(it)
+            places.append(slots.index([item.feat, item.idx]))
+            assert torch.equal(item.feat.cpu(), torch.from_numpy(w.feat))
+            assert torch.equal(item.idx.cpu(), torch.from_numpy(w.idx))
+    assert places == [0, 1] * 4
+    with PrefetchLoader(big, n_workers=1, seed=9, device="cuda") as pl:
+        got = pl.take(3)
+    assert all(slots.index([g.feat]) is None for g in got)
+    assert len({g.feat.data_ptr() for g in got}) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.feat.cpu(), torch.from_numpy(w.feat))
