@@ -68,10 +68,27 @@ from pyhgt_tpu_torch.ops.sorted_hgt import (
     sum_over,
 )
 from pyhgt_tpu_torch.parallel.edge_partition import hgt_conv_core_partitioned
+from pyhgt_tpu_torch.utils.counters import register
 
 EDGE_IMPLS = ("segment", "sorted")
 # the convs of general_conv, in the JAX package's order
 CONV_NAMES = ("hgt", "dense_hgt", "gcn", "gat", "rgcn", "han", "hetgnn")
+
+# DenseHGTConv's profiler ranges: the update half (A linear, dropout,
+# residual, typed norm) and the position-wise FFN (through ``ffn_ln``)
+UPDATE_SPAN, FFN_SPAN = "dense_hgt.update", "dense_hgt.ffn"
+
+
+class _FFNCounts:
+    """How often :class:`DenseHGTConv`'s FFN ran (``calls``, one a
+    forward, each over the layout's ``T * C`` padded rows), counted on the
+    host as the kernels' ``launches`` are; a CUDA graph's replay advances
+    it by what its capture counted (:mod:`pyhgt_tpu_torch.utils.counters`)."""
+
+    calls = 0
+
+
+ffn_counts = register(_FFNCounts(), "calls")
 
 # stddev of a standard normal truncated to (-2, 2)
 _TRUNC_STD = 0.87962566103423978
@@ -433,7 +450,9 @@ class DenseHGTConv(_HGTAttention):
     edge path). ``use_norm`` gates the per-type norm (whose parameters
     exist either way, as in the JAX package); the final norm over the
     FFN's output and its input (``ffn_ln``, a flax LayerNorm) is always
-    on."""
+    on. A forward runs the update half and the FFN inside the profiler
+    ranges :data:`UPDATE_SPAN` and :data:`FFN_SPAN` and advances
+    :data:`ffn_counts`."""
 
     def __init__(self, in_dim, out_dim, num_types, num_relations, n_heads,
                  *, generator: torch.Generator, dropout=0.2, use_norm=True,
@@ -458,14 +477,18 @@ class DenseHGTConv(_HGTAttention):
         # the JAX DenseHGTConv has no partitioned path either
         _no_partition(pe, "DenseHGTConv")
         aggr = self._aggregate(x, se, em, edges)
-        trans = self._project(aggr)
-        trans = dropout(trans, self.dropout, self.training, generator)
-        res = trans + x
-        if self.use_norm:  # per-type norm gated (conv.py:265-266)
-            res = _typed_layer_norm(res, self.ln_scale, self.ln_bias)
-        ffn = self.out(F.gelu(self.mid(res)))
-        ffn = dropout(ffn, self.dropout, self.training, generator)
-        return self.ffn_ln(ffn + res) * node_mask[..., None]
+        with torch.profiler.record_function(UPDATE_SPAN):
+            trans = self._project(aggr)
+            trans = dropout(trans, self.dropout, self.training, generator)
+            res = trans + x
+            if self.use_norm:  # per-type norm gated (conv.py:265-266)
+                res = _typed_layer_norm(res, self.ln_scale, self.ln_bias)
+        with torch.profiler.record_function(FFN_SPAN):
+            ffn = self.out(F.gelu(self.mid(res)))
+            ffn = dropout(ffn, self.dropout, self.training, generator)
+            out = self.ffn_ln(ffn + res)
+        ffn_counts.calls += 1
+        return out * node_mask[..., None]
 
 
 class GCNConv(nn.Module):

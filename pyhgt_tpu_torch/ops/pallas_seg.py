@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from pyhgt_tpu_torch.ops import cuda_build
+from pyhgt_tpu_torch.utils.counters import register
 
 # Tile (K) and output-block (W) sizes of the host aux. They were chosen for
 # the TPU kernel (its one-hot width is K + W); the port keeps them as the
@@ -740,3 +741,8 @@ KERNEL_SOURCES = (
     "live_partials", "live_partials_pair", "segment_softmax_partials",
     "head_sum_product", "live_partials_weighted", "live_partials_slab",
 )
+# a CUDA graph's replay advances each kernel's launch counters
+for _name in KERNEL_SOURCES:
+    _fn = globals()[_name]
+    register(_fn, *(c for c in ("launches", "window_launches")
+                    if hasattr(_fn, c)))

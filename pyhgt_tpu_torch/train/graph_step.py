@@ -31,25 +31,15 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from pyhgt_tpu_torch.ops import pallas_seg
 from pyhgt_tpu_torch.train.loader import InputSlots
 from pyhgt_tpu_torch.train.optim import (
     ScheduledOptimizer,
     clip_by_global_norm_,
 )
+from pyhgt_tpu_torch.utils import counters
 
 # at most this many graphs: one per input slot of one signature
 MAX_GRAPHS = InputSlots.COUNT
-
-# the hand kernels' launch counters (``.launches``, ``.window_launches``)
-_COUNTED = tuple(getattr(pallas_seg, name)
-                 for name in pallas_seg.KERNEL_SOURCES)
-_COUNTERS = ("launches", "window_launches")
-
-
-def _launch_counts() -> dict:
-    return {(fn, c): getattr(fn, c) for fn in _COUNTED for c in _COUNTERS
-            if hasattr(fn, c)}
 
 
 def signature(batch):
@@ -207,7 +197,7 @@ class _Graph:
     norm: Optional[torch.Tensor]  # its gradient norm before the clip
     generator: Optional[torch.Generator]
     update: _AdamWUpdate
-    launches: dict               # the hand kernels' launches it holds
+    counts: dict                 # what it advances of the host counters
     state: tuple                 # what it bakes in of the optimizer
 
 
@@ -236,9 +226,10 @@ class GraphedStep:
     Counters: ``captures``, ``replays`` (the steps a graph ran, a
     capture's included) and ``eager_steps``. ``grad_norm`` is the last
     step's global gradient norm before the clip (a device tensor, valid
-    until the next step; None without a clip). A replay advances the hand
-    kernels' launch counters (:mod:`~pyhgt_tpu_torch.ops.pallas_seg`) by
-    what its capture launched."""
+    until the next step; None without a clip). A replay advances every
+    registered host counter (:mod:`~pyhgt_tpu_torch.utils.counters`: the
+    hand kernels' launches, DenseHGT's FFN calls) by what its capture
+    counted."""
 
     def __init__(self, loss_fn: Callable[..., torch.Tensor],
                  optimizer: ScheduledOptimizer, model: nn.Module,
@@ -374,7 +365,7 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         if gen is not None:
             graph.register_generator_state(gen)
-        before = _launch_counts()
+        before = counters.snapshot()
         torch.cuda.synchronize(self.device)
         try:
             # thread_local: the loader's threads keep pinning host memory
@@ -396,9 +387,9 @@ class GraphedStep:
             self._refused.add(key)
             return None
         finally:
-            after = _launch_counts()
-            for (fn, c), n in before.items():
-                setattr(fn, c, n)
+            after = counters.snapshot()
+            for (obj, c), n in before.items():
+                setattr(obj, c, n)
         self.captures += 1
         return _Graph(graph, loss.detach(), norm, gen, update,
                       {k: after[k] - n for k, n in before.items()}, state)
@@ -406,7 +397,7 @@ class GraphedStep:
     def _replay(self, graph: _Graph) -> None:
         self._advance(graph.update)
         graph.graph.replay()
-        for (fn, c), n in graph.launches.items():
-            setattr(fn, c, getattr(fn, c) + n)
+        for (obj, c), n in graph.counts.items():
+            setattr(obj, c, getattr(obj, c) + n)
         self.grad_norm = graph.norm
         self.replays += 1
