@@ -2395,13 +2395,14 @@ def prefilled_epoch(tag, dev, cfg, task, layout, em, pairs, in_dim,
             f"{1 - busy / steps / step_ms:.3f}")
 
 
-def oag_item(cfg, graph, task, pairs, seeds_fn):
+def oag_item(cfg, graph, task, pairs, seeds_fn, seeds_bounded=True):
     """One producer item of ``task`` on ``pairs`` (the loader's path:
     sample, pad, the C++ sort with the backward's aux), on a layout
     calibrated from ``seeds_fn`` as the runner calibrates its own (the
-    draws are unseeded, so the caps may differ a little): returns (item,
-    layout, em)."""
-    layout = make_layout(cfg, graph, sampler=task.sampler, seeds_fn=seeds_fn)
+    draws are unseeded, so the caps may differ a little; ``seeds_bounded``
+    as ``make_layout`` takes it): returns (item, layout, em)."""
+    layout = make_layout(cfg, graph, sampler=task.sampler, seeds_fn=seeds_fn,
+                         seeds_bounded=seeds_bounded)
     task.layout = layout
     em = EdgeStaticMeta.from_layout(layout)
     item = _make_producer(task.make_sample_fn(pairs, OAG_SPLITS["train"]),
@@ -2849,7 +2850,8 @@ def phase_oag_link(dev, graph, workdir):
     crng = np.random.default_rng(c0.seed + 7)
     item, layout, em = oag_item(
         c0, graph, task, pairs["train"], lambda: task.build_seeds(
-            pairs["train"], OAG_SPLITS["train"], crng)[0])
+            pairs["train"], OAG_SPLITS["train"], crng)[0],
+        seeds_bounded=False)
     tb = item.tb
     log(f"[oag-link-cpu] one producer item on a calibrated layout (node cap "
         f"{layout.node_cap}, {layout.num_edges} padded edges): "

@@ -52,7 +52,7 @@ import torch
 from pyhgt_tpu_torch import resolve_device
 from pyhgt_tpu_torch.config import ExperimentConfig
 from pyhgt_tpu_torch.graph.csr import CSRGraph
-from pyhgt_tpu_torch.graph.schema import PadSpec
+from pyhgt_tpu_torch.graph.schema import PadSpec, sampler_node_bound
 from pyhgt_tpu_torch.models.composite import (
     LinkMatcherModel,
     NodeClassifierModel,
@@ -77,7 +77,7 @@ from pyhgt_tpu_torch.parallel.spmd import (
     make_gp_train_step,
     make_tp_train_step,
 )
-from pyhgt_tpu_torch.sampling.batch import BatchLayout
+from pyhgt_tpu_torch.sampling.batch import BatchLayout, pad_counts
 from pyhgt_tpu_torch.sampling.hgsampler import HGSampler
 from pyhgt_tpu_torch.sampling.sorted_batch import (
     SortedEdges,
@@ -182,11 +182,22 @@ def make_layout(
     graph: CSRGraph,
     sampler=None,
     seeds_fn=None,
+    seeds_bounded: bool = True,
 ) -> BatchLayout:
+    """The padded layout of ``cfg``'s batches: calibrated from ``sampler``'s
+    draws of ``seeds_fn()`` seeds when ``cfg.calibrate_caps``, else
+    HGSampling's bound (``PadSpec.for_sampler``, with ``cfg.edge_cap``);
+    ``cfg.node_cap``, when set, wins. ``seeds_bounded``: the task seeds at
+    most ``cfg.batch_size`` nodes of any one type (the node-classification
+    tasks), so HGSampling's bound caps the calibrated node cap; the link
+    task's author seeds (whole name groups) have no such bound."""
     if cfg.calibrate_caps and sampler is not None and seeds_fn is not None:
         # size per-meta edge caps from measured draws (PadSpec.calibrate);
         # overflow beyond the cap is subsampled by pad_sample anyway
-        pad = PadSpec.calibrate(sampler, seeds_fn)
+        bound = (sampler_node_bound(cfg.batch_size, cfg.sample_depth,
+                                    cfg.sample_width)
+                 if seeds_bounded else None)
+        pad = PadSpec.calibrate(sampler, seeds_fn, node_bound=bound)
         if cfg.node_cap:
             pad = dataclasses.replace(pad, node_cap=cfg.node_cap)
         return BatchLayout(schema=graph.schema, pad=pad)
@@ -811,6 +822,25 @@ def _fit(cfg: ExperimentConfig, producer, step, step_args, loader_kw,
     return history
 
 
+def _node_cap_text(layout: BatchLayout) -> str:
+    """The ``layout:`` line's node cap, with what sized a calibrated one:
+    HGSampling's bound and the cap the calibration draws asked for."""
+    pad = layout.pad
+    if pad.node_calibrated is None:
+        return f"node cap {pad.node_cap}"
+    bound = "none" if pad.node_bound is None else pad.node_bound
+    return (f"node cap {pad.node_cap} (sampler bound {bound}, calibrated "
+            f"{pad.node_calibrated})")
+
+
+def _truncated_text(since) -> str:
+    """The run's closing ``layout:`` line: the node rows ``pad_sample``
+    truncated since ``since`` (a ``pad_counts.read()``), on this process."""
+    batches, rows, cut = (a - b for a, b in zip(pad_counts.read(), since))
+    return (f"layout: {cut} node rows truncated in {batches} padded batches "
+            f"({rows} rows filled)")
+
+
 def _metrics_logger(cfg: ExperimentConfig) -> MetricsLogger:
     """The run's metrics jsonl; on a rank other than 0 a sink that writes
     nothing."""
@@ -912,7 +942,8 @@ def run_node_classification(
         seeds_fn=lambda: task.build_seeds(train_pairs, _crng)[0],
     ))
     task.layout = layout
-    log(f"layout: node cap {layout.node_cap}, {layout.num_edges} padded "
+    pads = pad_counts.read()
+    log(f"layout: {_node_cap_text(layout)}, {layout.num_edges} padded "
         f"edges in {len(layout.blocks)} blocks; {task.n_classes} classes")
     em = EdgeStaticMeta.from_layout(layout)
     em_dev = em.to(dev)
@@ -968,6 +999,7 @@ def run_node_classification(
                                         splits["test"], cfg, log, mesh)
     metrics.log("test", ndcg=test_ndcg, mrr=test_mrr)
     metrics.close()
+    log(_truncated_text(pads))
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
                 best_valid=ckpt.best, state=full)
 
@@ -1001,6 +1033,7 @@ def link_setup(
         seeds_fn=lambda: task.build_seeds(
             pairs["train"], splits["train"], _crng
         )[0],
+        seeds_bounded=False,
     ))
     tb0 = task.sample(pairs["train"], splits["train"],
                       np.random.default_rng(cfg.seed))
@@ -1035,7 +1068,8 @@ def run_author_disambiguation(
     task, pairs, model = link_setup(cfg, graph, splits, first_meta,
                                     write_meta, max_group, log)
     layout = task.layout
-    log(f"layout: node cap {layout.node_cap}, {layout.num_edges} padded "
+    pads = pad_counts.read()
+    log(f"layout: {_node_cap_text(layout)}, {layout.num_edges} padded "
         f"edges in {len(layout.blocks)} blocks; {len(task.groups)} name "
         f"groups")
     em = EdgeStaticMeta.from_layout(layout)
@@ -1092,6 +1126,7 @@ def run_author_disambiguation(
 
     test_ndcg, test_mrr = _test_metrics(eval_metrics, pairs["test"],
                                         splits["test"], cfg, log, mesh)
+    log(_truncated_text(pads))
     return dict(history=history, test_ndcg=test_ndcg, test_mrr=test_mrr,
                 best_valid=ckpt.best, state=full)
 
@@ -1129,7 +1164,8 @@ def run_ogbn(
 
     layout = shared_layout(lambda: make_layout(
         cfg, graph, sampler=sampler, seeds_fn=_cal_seeds))
-    log(f"layout: node cap {layout.node_cap}, {layout.num_edges} padded "
+    pads = pad_counts.read()
+    log(f"layout: {_node_cap_text(layout)}, {layout.num_edges} padded "
         f"edges in {len(layout.blocks)} blocks")
     em = EdgeStaticMeta.from_layout(layout)
     em_dev = em.to(dev)
@@ -1206,6 +1242,7 @@ def run_ogbn(
     log(f"test acc ({eval_mode}): {vr['acc']:.4f} "
         f"(sequential {vr['seq_acc']:.4f}, per-occurrence "
         f"{vr['single_sample_acc']:.4f}, n={vr['n_eval']})")
+    log(_truncated_text(pads))
     return dict(history=history, test=vr, best_valid=ckpt.best, state=full)
 
 

@@ -145,11 +145,18 @@ class PadSpec:
     """Padded capacities for a batch. ``node_cap`` is the per-type node
     capacity (uniform, so nodes pack to a dense ``[T, C, D]`` tensor);
     ``edge_caps`` maps a meta triple to its edge capacity, with
-    ``default_edge_cap`` as fallback."""
+    ``default_edge_cap`` as fallback. A calibrated spec also notes what
+    sized its node cap (not compared): ``node_calibrated``, the cap the
+    draws asked for, and ``node_bound``, HGSampling's own bound that caps
+    it (``None`` where the task's seeds have none)."""
 
     node_cap: int
     default_edge_cap: int
     edge_caps: Tuple[Tuple[Tuple[str, str, str], int], ...] = ()
+    node_calibrated: Optional[int] = dataclasses.field(default=None,
+                                                       compare=False)
+    node_bound: Optional[int] = dataclasses.field(default=None,
+                                                  compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "_caps", dict(self.edge_caps))
@@ -168,11 +175,8 @@ class PadSpec:
         default_edge_cap: Optional[int] = None,
         align: int = 128,
     ) -> "PadSpec":
-        """Capacity bound implied by HGSampling: each type gains at most
-        ``width`` nodes per depth round plus the seeds (see
-        ``pyHGT/data.py:147-172`` — type-balanced sampling is what makes
-        fixed shapes natural)."""
-        node_cap = _round_up(num_seeds + depth * width, align)
+        """Capacity bound implied by HGSampling (:func:`sampler_node_bound`)."""
+        node_cap = sampler_node_bound(num_seeds, depth, width, align)
         if default_edge_cap is None:
             default_edge_cap = _round_up(node_cap * 8, align)
         caps = tuple(sorted((k, _round_up(v, align)) for k, v in (edge_caps or {}).items()))
@@ -186,9 +190,12 @@ class PadSpec:
         n_trials: int = 4,
         headroom: float = 1.5,
         align: int = 128,
+        node_bound: Optional[int] = None,
     ) -> "PadSpec":
         """Measure per-meta edge counts over a few sample draws and size the
-        caps with headroom. ``seeds_fn()`` must return sampler seed input."""
+        caps with headroom. ``seeds_fn()`` must return sampler seed input.
+        The node cap is at most ``node_bound`` (:func:`sampler_node_bound`
+        of the task's seeds), since no batch fills rows beyond it."""
         import numpy as np
 
         schema = sampler.schema
@@ -199,13 +206,25 @@ class PadSpec:
             max_nodes = max(max_nodes, max(len(v) for v in s.node_ids.values()))
             for meta, (tgt, _src) in s.edges.items():
                 max_edges[meta] = max(max_edges.get(meta, 0), len(tgt))
-        node_cap = _round_up(int(max_nodes * headroom) + 1, align)
+        calibrated = _round_up(int(max_nodes * headroom) + 1, align)
         caps = {
             m: _round_up(int(n * headroom) + 1, align) for m, n in max_edges.items()
         }
-        default = max(caps.values()) if caps else _round_up(node_cap * 8, align)
+        default = max(caps.values()) if caps else _round_up(calibrated * 8, align)
         return cls(
-            node_cap=node_cap,
+            node_cap=(calibrated if node_bound is None
+                      else min(calibrated, node_bound)),
             default_edge_cap=default,
             edge_caps=tuple(sorted(caps.items())),
+            node_calibrated=calibrated,
+            node_bound=node_bound,
         )
+
+
+def sampler_node_bound(num_seeds: int, depth: int, width: int,
+                       align: int = 128) -> int:
+    """The most nodes of one type a batch can hold, rounded up to
+    ``align``: HGSampling inserts the seeds, then each of its ``depth``
+    rounds at most ``width`` nodes of a type (``pyHGT/data.py:147-172``;
+    type-balanced sampling is what makes fixed shapes natural)."""
+    return _round_up(num_seeds + depth * width, align)

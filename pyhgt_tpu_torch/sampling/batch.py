@@ -19,6 +19,7 @@ same generator state).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -84,6 +85,32 @@ class SubgraphBatch:
     block_overflow: np.ndarray
 
 
+class _PadCounts:
+    """What :func:`pad_sample` packed, counted under a lock (the loader's
+    threads pad at once): ``batches`` padded, valid node ``rows`` filled and
+    node rows ``truncated`` beyond the layout's ``node_cap``, which stays 0
+    while the cap holds HGSampling's bound (``schema.sampler_node_bound``).
+    Not replayed by a CUDA graph: it counts host work."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.batches = self.rows = self.truncated = 0
+
+    def add(self, rows: int, truncated: int):
+        with self._lock:
+            self.batches += 1
+            self.rows += rows
+            self.truncated += truncated
+
+    def read(self):
+        """``(batches, rows, truncated)`` so far."""
+        with self._lock:
+            return self.batches, self.rows, self.truncated
+
+
+pad_counts = _PadCounts()
+
+
 def pad_sample(
     sample: RawSample,
     layout: BatchLayout,
@@ -96,8 +123,8 @@ def pad_sample(
     ``features[type]`` is the ``[n_type, Din]`` feature matrix for the
     sampled nodes of that type (same order as ``sample.node_ids[type]``).
     Node overflow beyond ``node_cap`` truncates (keeping seeds, which come
-    first); edge overflow per block keeps a uniform random subset and records
-    the drop count in ``block_overflow``.
+    first; counted in :data:`pad_counts`); edge overflow per block keeps a
+    uniform random subset and records the drop count in ``block_overflow``.
     """
     schema, pad = layout.schema, layout.pad
     T, C = schema.num_types, pad.node_cap
@@ -107,10 +134,12 @@ def pad_sample(
     node_time = np.zeros((T, C), dtype=np.int32)
     node_mask = np.zeros((T, C), dtype=bool)
     counts: Dict[str, int] = {}
+    truncated = 0
     for t in schema.node_types:
         ids = sample.node_ids.get(t)
         n = 0 if ids is None else min(len(ids), C)
         counts[t] = n
+        truncated += 0 if ids is None else len(ids) - n
         if n == 0:
             continue
         ti = schema.type_id(t)
@@ -164,6 +193,7 @@ def pad_sample(
         edge_dt[sl] = np.clip(dt, 0, RTE_MAX_LEN - 1).astype(np.int32)
         edge_mask[sl] = True
 
+    pad_counts.add(sum(counts.values()), truncated)
     return SubgraphBatch(
         node_feat=node_feat,
         node_time=node_time,
